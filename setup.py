@@ -1,6 +1,9 @@
 """Build the native IO/runtime extension (C++, CPython C API).
 
     python setup.py build_ext --inplace
+
+Also packages ``raytrace_tpu_torch``, the PyTorch/CUDA port, with its CUDA
+sources (built with nvcc at first use, not here).
 """
 
 import numpy as np
@@ -10,6 +13,7 @@ setup(
     name="raytrace_tpu",
     version="0.1.0",
     packages=find_packages(include=["raytrace_tpu*"]),
+    package_data={"raytrace_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "raytrace_native",
