@@ -3,25 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives ``raytrace_tpu_torch``'s ``create_image`` main path on the card and
+Drives ``raytrace_tpu_torch``'s ``create_image`` main path, its
+``create_image_stream`` serving path and its gather probe on the card, and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. a CUDA device is present; print its name and power limit;
-2. build the CUDA kernels from ``raytrace_tpu_torch/csrc`` (build seconds,
-   registers per kernel);
-3. each kernel against its plain PyTorch twin on the card, at the main
-   path's shapes: trace B1 on refraction-free rays in both methods (cell
-   ids and escape flags identical, path integrals within 1e-5 relative)
+2. build the CUDA kernels from ``raytrace_tpu_torch/csrc`` (one nvcc per
+   source, in parallel; build seconds, registers per kernel);
+3. each kernel against its plain PyTorch twin on the card, at the paths'
+   shapes, each timed beside its twin with CUDA events:
+   trace B1 on refraction-free rays in both methods (cell ids, escape flags
+   and micro-step counts identical, path integrals within 1e-5 relative)
    and on 65,536 rays of the ASE-shaped synthetic (median within 1e-5,
-   escape flags identical); deposit B2 on seeded random bins (1e-12
-   relative); each timed beside its twin with CUDA events;
+   escape flags identical, median count equal), its counts variant timed
+   beside the normal launch; deposit B2 on seeded random bins (1e-12
+   relative); amplify B3 on one 2^20-ray chunk of the seeded shipped shape
+   traced by B1, K 82 (log-gain bitwise, spectrum within 1e-13 relative);
+   probe P1 at K 64 (bitwise);
 4. with every launch count at 0: ``create_image`` on both golden fixtures
    (``check_ans`` at 5e-6 and a two-sided relative L2 below 1e-5 against
    the embedded golden), then the two shipped-shape synthetics (ASE
    60x25x19x14 = 399,000 rays, nv 52; seeded 120x25x51x51 = 7,803,000
    rays, nv 82; N 3, 106x26 gain grid) with one warmup and three timed
-   calls each; each kernel must have launched in this run;
-5. the shipped-shape calls once more through the plain twins on the card:
+   calls each; B1, B2 and B3 must have launched in this run;
+5. with the counts at 0 again: ``create_image_stream`` at depth 2 over 4
+   ASE and then 4 seeded shipped-shape units with distinct gain tables,
+   without and with the reorder; every yield within 1e-12 relative L2 of
+   the synchronous call on the same unit; fill, steady inter-yield seconds
+   and s/call beside the synchronous s/call; B1, B2 and B3 must have
+   launched;
+6. with P1's count at 0: the probe tool's measurement
+   (``raytrace_tpu_torch.tools.gather_probe.measure``), ns per dependent
+   gather; P1 must have launched;
+7. the shipped-shape calls once more through the plain twins on the card:
    image and I_ang within a relative L2 of 1e-5 of the kernels' result.
 
 Prints one JSON line of per-kernel results, the card line, and as its last
@@ -29,6 +43,7 @@ line ``{"ok": true, "device": {...}}``. A longer record of every measurement
 goes to ``chiprun_out/chip_smoke.json``. Needs no network; uses one card.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -105,6 +120,8 @@ def source_rays(p, n=None):
 
 
 def trace_pair(p, rays):
+    """B1 and its twin on ``rays``, both with the micro-step counts; the
+    counts variant's other outputs must equal the normal launch's."""
     from raytrace_tpu_torch.models.problem import prepare_gain
     from raytrace_tpu_torch.ops import trace_kernel
 
@@ -113,9 +130,14 @@ def trace_pair(p, rays):
     use_emis = method == 1
     args = (rays, p.N, p.euv_beam.dz, g, method, 0.5, use_emis)
     got = trace_kernel.trace_batch(*args)
-    want = trace_kernel.trace_batch_plain(*args)
+    got_c, steps = trace_kernel.trace_batch(*args, counts=True)
+    want, want_steps = trace_kernel.trace_batch_plain(*args, counts=True)
     torch.cuda.synchronize()
-    return got, want, args
+    if not all(torch.equal(getattr(got, f), getattr(got_c, f))
+               for f in got._fields):
+        fail(f"trace method {method}: the counts variant's outputs differ "
+             f"from the normal launch's")
+    return got, want, args, steps, want_steps
 
 
 def rel_err(got, want):
@@ -131,7 +153,10 @@ def phase_kernels(results):
     for method in (1, 2):
         p = synthetic_problem(refraction_free=True, seeded=method == 2,
                               **{k: v for k, v in ASE_SHAPE.items()})
-        got, want, _ = trace_pair(p, source_rays(p, 65536))
+        got, want, _, steps, want_steps = trace_pair(p, source_rays(p, 65536))
+        if not torch.equal(steps, want_steps):
+            fail(f"trace method {method} refraction-free: micro-step counts "
+                 f"differ")
         if not torch.equal(got.ivl, want.ivl):
             fail(f"trace method {method} refraction-free: ivl differs")
         if not torch.equal(got.escaped, want.escaped):
@@ -144,14 +169,18 @@ def phase_kernels(results):
         worst = max(worst, (got.gvl - want.gvl).abs().max().item())
         bitwise = all(torch.equal(getattr(got, f), getattr(want, f))
                       for f in got._fields)
-        print(f"trace refraction-free method {method}: ivl/escaped "
+        print(f"trace refraction-free method {method}: ivl/escaped/counts "
               f"identical, gvl/evl within 1e-5, bitwise {bitwise}",
               flush=True)
         record[f"trace_straight_{method}"] = dict(bitwise=bitwise)
 
     # B1 on 65,536 rays of the ASE-shaped synthetic
     p = synthetic_problem(**ASE_SHAPE)
-    got, want, args = trace_pair(p, source_rays(p, 65536))
+    got, want, args, steps, want_steps = trace_pair(p, source_rays(p, 65536))
+    med_steps = (steps.float().median().item(),
+                 want_steps.float().median().item())
+    if med_steps[0] != med_steps[1]:
+        fail(f"trace ASE-shaped: median micro-step count {med_steps}")
     med = max(rel_err(got.gvl, want.gvl).median().item(),
               rel_err(got.evl, want.evl).median().item())
     bitwise = all(torch.equal(getattr(got, f), getattr(want, f))
@@ -162,22 +191,28 @@ def phase_kernels(results):
     worst = max(worst, (got.gvl - want.gvl).abs().max().item(),
                 (got.evl - want.evl).abs().max().item())
     ms = cuda_ms(lambda: trace_kernel.trace_batch(*args), 20)
+    ms_c = cuda_ms(lambda: trace_kernel.trace_batch(*args, counts=True), 20)
     plain_ms = cuda_ms(lambda: trace_kernel.trace_batch_plain(*args), 3)
     print(f"trace ASE-shaped 65536 rays: median rel {med:.3e}, bitwise "
-          f"{bitwise}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+          f"{bitwise}, median counts {med_steps}; kernel {ms:.4f} ms, "
+          f"counts variant {ms_c:.4f} ms, plain {plain_ms:.3f} ms",
           flush=True)
     record["trace_65536"] = dict(median_rel=med, bitwise=bitwise, ms=ms,
-                                 plain_ms=plain_ms)
+                                 counts_ms=ms_c, plain_ms=plain_ms,
+                                 median_steps=med_steps[0])
 
     # B1 over a whole call's rays: ASE is one chunk of 399,000 rays
     all_rays = source_rays(p)
     args_all = (all_rays,) + args[1:]
     ms_all = cuda_ms(lambda: trace_kernel.trace_batch(*args_all), 5)
+    ms_all_c = cuda_ms(
+        lambda: trace_kernel.trace_batch(*args_all, counts=True), 5)
     plain_all = cuda_ms(lambda: trace_kernel.trace_batch_plain(*args_all), 1)
     print(f"trace ASE-shaped whole call ({all_rays['x'].shape[0]} rays): "
-          f"kernel {ms_all:.3f} ms, plain {plain_all:.3f} ms", flush=True)
+          f"kernel {ms_all:.4f} ms, counts variant {ms_all_c:.4f} ms, plain "
+          f"{plain_all:.3f} ms", flush=True)
     record["trace_ase_call"] = dict(rays=all_rays["x"].shape[0], ms=ms_all,
-                                    plain_ms=plain_all)
+                                    counts_ms=ms_all_c, plain_ms=plain_all)
     results["trace"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
 
     # B2 on seeded random bins at the main path's image shapes
@@ -209,6 +244,65 @@ def phase_kernels(results):
         if name == "ase":
             results["deposit"] = dict(ms=ms_d, plain_ms=plain_d)
     results["deposit"]["max_abs_err"] = dep_worst
+
+    phase_amplify(results)
+    phase_probe_kernel(results)
+
+
+def phase_amplify(results):
+    """B3 on one 2^20-ray chunk of the seeded shipped shape, its ivl/gvl
+    traced by B1, against the twin; both timed."""
+    from raytrace_tpu_torch.models.problem import prepare_gain
+    from raytrace_tpu_torch.ops import amplify_kernel, cuda_lib, trace_kernel
+    from raytrace_tpu_torch.testing import synthetic_problem
+
+    p = synthetic_problem(**SEED_SHAPE)
+    gain = prepare_gain(p.gain, "cuda")
+    res = trace_kernel.trace_batch(source_rays(p, 1 << 20), p.N,
+                                   p.euv_beam.dz, gain, 2, 0.5, False)
+    gv = gain.gv[1:]
+    B, K = res.ivl.shape[0], p.euv_beam.nv
+    rng = np.random.default_rng(1)
+    Iv0 = torch.as_tensor(rng.uniform(0.5, 1.5, (B, K)), device="cuda")
+    args = (Iv0, res.ivl, res.gvl, gv)
+    got = amplify_kernel.amplify_gain(*args)
+    _, gl = amplify_kernel._launch(cuda_lib.load_library(), *args,
+                                   torch.cuda.current_stream().cuda_stream,
+                                   log_gain=True)
+    want = amplify_kernel.amplify_gain_plain(*args)
+    gl_bitwise = torch.equal(gl, amplify_kernel.log_gain_plain(*args[1:]))
+    rel = ((got - want).abs() / want.abs()).max().item()
+    if not gl_bitwise or rel > 1e-13:
+        fail(f"amplify: log-gain bitwise {gl_bitwise}, spectrum max rel {rel}")
+    ms = cuda_ms(lambda: amplify_kernel.amplify_gain(*args), 20)
+    plain_ms = cuda_ms(lambda: amplify_kernel.amplify_gain_plain(*args), 5)
+    print(f"amplify seeded chunk B={B} K={K} cells={gv.shape[1]}: log-gain "
+          f"bitwise, max rel {rel:.3e}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    record["amplify_chunk"] = dict(B=B, K=K, max_rel=rel, ms=ms,
+                                   plain_ms=plain_ms)
+    results["amplify"] = dict(max_abs_err=(got - want).abs().max().item(),
+                              ms=ms, plain_ms=plain_ms)
+
+
+def phase_probe_kernel(results):
+    """P1 against its twin at K = 64, both timed there."""
+    from raytrace_tpu_torch.tools import gather_probe
+
+    tab, idx = (t.cuda() for t in gather_probe.probe_inputs())
+    K = 64
+    got = gather_probe.gather_probe(tab, idx, K)
+    want = gather_probe.gather_probe_plain(tab, idx, K)
+    if not torch.equal(got, want):
+        fail("gather probe: kernel differs from its twin")
+    ms = cuda_ms(lambda: gather_probe.gather_probe(tab, idx, K), 20)
+    plain_ms = cuda_ms(lambda: gather_probe.gather_probe_plain(tab, idx, K),
+                       5)
+    print(f"gather probe K={K}: bitwise; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    results["gather_probe"] = dict(
+        max_abs_err=(got - want).abs().max().item(), ms=ms,
+        plain_ms=plain_ms)
 
 
 def check_output(image, i_ang, p):
@@ -266,6 +360,59 @@ def phase_main_path():
     return outs
 
 
+def phase_stream():
+    """create_image_stream over 4 distinct-table units of each shipped
+    shape, without and with the reorder, against synchronous calls."""
+    from raytrace_tpu_torch import create_image, create_image_stream
+    from raytrace_tpu_torch.testing import (perturbed_problems,
+                                            synthetic_problem)
+
+    for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
+        source = functools.partial(synthetic_problem, **shape)
+        sync, sync_s = [], []
+        for p in perturbed_problems(source, 4, salt=1):
+            t0 = time.perf_counter()
+            sync.append(create_image(p, "cuda", device="cuda"))
+            sync_s.append(time.perf_counter() - t0)
+        for reorder in (False, True):
+            units = perturbed_problems(source, 4, salt=1)
+            t0 = time.perf_counter()
+            marks, worst = [], 0.0
+            for k, (image, i_ang) in enumerate(create_image_stream(
+                    units, "cuda", device="cuda", depth=2, reorder=reorder)):
+                marks.append(time.perf_counter())
+                check_output(image, i_ang, units[k])
+                worst = max(worst, rel_l2(image, sync[k][0]),
+                            rel_l2(i_ang, sync[k][1]))
+            if len(marks) != 4 or worst > 1e-12:
+                fail(f"stream {name} reorder {reorder}: {len(marks)} yields, "
+                     f"worst rel L2 against sync {worst}")
+            fill = marks[0] - t0
+            steady = [b - a for a, b in zip(marks, marks[1:])]
+            per_call = (marks[-1] - t0) / 4
+            print(f"stream {name} depth 2 reorder {reorder}: rel L2 vs sync "
+                  f"<= {worst:.3e}; fill {fill:.5f} s, steady "
+                  f"{[round(y, 5) for y in steady]} s, s/call {per_call:.5f} "
+                  f"(sync s/call {[round(t, 5) for t in sync_s]})",
+                  flush=True)
+            record[f"stream_{name}_reorder{int(reorder)}"] = dict(
+                worst_rel=worst, fill_s=fill, steady_s=steady,
+                per_call_s=per_call, sync_s=sync_s)
+
+
+def phase_probe_path():
+    """The probe tool's entry point: ns per dependent gather."""
+    from raytrace_tpu_torch.tools import gather_probe
+
+    out = gather_probe.measure(reps=5)
+    if not (0.0 < out["gather_ns"] < 1e4):
+        fail(f"gather probe: {out}")
+    print(f"gather probe: {out['gather_ns']:.4f} ns per dependent gather "
+          f"(K {out['k']}, {out['threads']} threads, all "
+          f"{[round(t, 4) for t in out['gather_ns_all']]})", flush=True)
+    record["gather_probe"] = out
+
+
 def phase_plain(outs):
     from raytrace_tpu_torch import create_image
 
@@ -290,7 +437,9 @@ def main() -> int:
         return 1
     card = card_line()
     print(card, flush=True)
-    from raytrace_tpu_torch.ops import cuda_lib, deposit_kernel, trace_kernel
+    from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib,
+                                        deposit_kernel, trace_kernel)
+    from raytrace_tpu_torch.tools import gather_probe
 
     t0 = time.perf_counter()
     cuda_lib.load_library()
@@ -306,15 +455,29 @@ def main() -> int:
     results = {}
     phase_kernels(results)
 
-    trace_kernel.launch_count = 0
-    deposit_kernel.launch_count = 0
-    outs = phase_main_path()
-    launches = {"trace": trace_kernel.launch_count,
-                "deposit": deposit_kernel.launch_count}
-    print(f"launches on the main path: {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    wrappers = {"trace": trace_kernel, "deposit": deposit_kernel,
+                "amplify": amplify_kernel, "gather_probe": gather_probe}
+
+    def run_path(what, phase, names):
+        """Drive one path with every count at 0; each kernel of the path
+        must have launched."""
+        for w in wrappers.values():
+            w.launch_count = 0
+        out = phase()
+        counts = {n: wrappers[n].launch_count for n in names}
+        print(f"launches on the {what}: {counts}", flush=True)
+        for n, c in counts.items():
+            if c <= 0:
+                fail(f"kernel {n} was not launched on the {what}")
+        return out, counts
+
+    path_kernels = ("trace", "deposit", "amplify")
+    outs, launches = run_path("main path", phase_main_path, path_kernels)
+    _, stream_launches = run_path("stream path", phase_stream, path_kernels)
+    _, probe_launches = run_path("probe path", phase_probe_path,
+                                 ("gather_probe",))
+    launches.update(probe_launches)
+    record["stream_launches"] = stream_launches
 
     phase_plain(outs)
 
@@ -327,6 +490,14 @@ def main() -> int:
              source="raytrace_tpu_torch/csrc/deposit.cu",
              replaces="raytrace_tpu/ops/deposit_kernel.py:76",
              launches=launches["deposit"], **results["deposit"]),
+        dict(name="amplify", route="cuda",
+             source="raytrace_tpu_torch/csrc/amplify.cu",
+             replaces="raytrace_tpu/ops/pallas_amplify.py:123",
+             launches=launches["amplify"], **results["amplify"]),
+        dict(name="gather_probe", route="cuda",
+             source="raytrace_tpu_torch/csrc/gather_probe.cu",
+             replaces="tools/vpu_probe.py:112",
+             launches=launches["gather_probe"], **results["gather_probe"]),
     ]
     record["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -21,6 +21,12 @@
 // (latency) and divergence between the rays of a warp, whose trip counts
 // differ. No shared memory; one ray's state lives in registers.
 //
+// Counts variant: with a non-null `steps` output the kernel also writes each
+// ray's number of propagate micro-steps over the whole trace (one per
+// iteration of propagate's loop), the per-lane count the Pallas kernel keeps
+// with counts=True (pallas_kernel.py:757-758) and the cost-feedback reorder
+// sorts by. The count lives in a register; a null pointer writes nothing.
+//
 // Precision placement (the spec, held against the JAX package by
 // tests/test_torch_trace.py): x/y grids and the cell-edge fractions in
 // f64 with one cast to f32; stepping state f32; tan/atan in f64. The file
@@ -98,7 +104,7 @@ struct Ray {
 __device__ void propagate(float c, float n0, float dndx, float dndy,
                           float box0, float box1, float box2, float& sx,
                           float& sy, float& sz, float& rx, float& ry,
-                          float& rz, float& path) {
+                          float& rz, float& path, int& nst) {
   const float dz_max = (c * 1.00001f) * box2;
   const float c01 = c * 0.1f;
   const float c005 = c * 0.05f;
@@ -108,6 +114,7 @@ __device__ void propagate(float c, float n0, float dndx, float dndy,
   path = 0.0f;
   bool act = (box0 > 0.0f) && (box1 > 0.0f) && (box2 > 0.0f);
   while (act) {
+    ++nst;
     float n = n0 + rx * dndx + ry * dndy;
     float t = (sx * dndx + sy * dndy + 1e-12f) / n;
     float fx = dndx / n - sx * t;
@@ -141,7 +148,8 @@ __device__ void propagate(float c, float n0, float dndx, float dndy,
 // One (segment, sub-length) cell walk (RayTraceImageHelper.h:460-512).
 __device__ void cell_walk(const GainTables& g, int seg, float z_stop,
                           float c, bool use_emis, Ray& ray, bool& escaped,
-                          float& z, float& gvl, float& evl, int& ivl) {
+                          float& z, float& gvl, float& evl, int& ivl,
+                          int& nst) {
   const int nx_pad = g.nx_pad, ny_pad = g.ny_pad;
   const double* xg = g.x + (size_t)seg * nx_pad;
   const double* yg = g.y + (size_t)seg * ny_pad;
@@ -222,7 +230,7 @@ __device__ void cell_walk(const GainTables& g, int seg, float z_stop,
         const float box2 = dz2 - z2;
         float rx, ry, rz, path;
         propagate(c, n0, dndx, dndy, box0, box1, box2, l.sx, l.sy, l.sz,
-                  rx, ry, rz, path);
+                  rx, ry, rz, path, nst);
         l.px = l.px + rx;
         l.py = l.py + ry;
         pz = pz + rz;
@@ -252,7 +260,8 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
                              int method, int use_emis, float* gvl_out,
                              float* evl_out, int32_t* ivl_out, float* exit_x,
                              float* exit_y, float* exit_a, float* exit_b,
-                             uint8_t* escaped_out, uint8_t* perp_out) {
+                             uint8_t* escaped_out, uint8_t* perp_out,
+                             int32_t* steps_out) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int nseg = N - 1;
@@ -272,6 +281,7 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
   normalize(ray.sx, ray.sy, ray.sz);
 
   bool escaped = false;
+  int nst = 0;
   for (int i = 0; i < nseg; ++i) {
     // high-energy-side segment indexing (RayTraceImageHelper.h:430-441)
     const int ii = method == 1 ? N - i - 1 : i + 1;
@@ -282,7 +292,7 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
       float gvl, evl;
       int ivl;
       cell_walk(g, ii, z_stop, c, use_emis != 0, ray, escaped, z, gvl, evl,
-                ivl);
+                ivl, nst);
       const int64_t o = (b * nseg + (ii - 1)) * kNSub + isub;
       gvl_out[o] = gvl;
       evl_out[o] = evl;
@@ -297,13 +307,14 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
   exit_b[b] = (float)atan((double)(ray.sy / ray.sz)) * 1e3f;
   escaped_out[b] = escaped ? 1 : 0;
   perp_out[b] = (ray.sz * ray.sz < 0.01f) ? 1 : 0;
+  if (steps_out != nullptr) steps_out[b] = nst;
 }
 
 }  // namespace
 
 // C entry bound with ctypes by raytrace_tpu_torch/ops/trace_kernel.py.
-// Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() of the launch.
+// `steps` may be null (no counts). Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() of the launch.
 extern "C" int rt_trace(const float* ray_x, const float* ray_y,
                         const float* ray_a, const float* ray_b, int64_t B,
                         const double* gx, const double* gy, const float* cdx,
@@ -315,13 +326,13 @@ extern "C" int rt_trace(const float* ray_x, const float* ray_y,
                         int use_emis, float* gvl, float* evl, int32_t* ivl,
                         float* exit_x, float* exit_y, float* exit_a,
                         float* exit_b, uint8_t* escaped, uint8_t* perp,
-                        void* stream) {
+                        int32_t* steps, void* stream) {
   GainTables g{gx, gy, cdx, cdy, n4, g0, E0, Gx, Gy, range4, absy, nx, ny,
                nx_pad, ny_pad};
   const int threads = 128;
   const int64_t blocks = (B + threads - 1) / threads;
   trace_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       ray_x, ray_y, ray_a, ray_b, B, g, N, dz0, c, method, use_emis, gvl, evl,
-      ivl, exit_x, exit_y, exit_a, exit_b, escaped, perp);
+      ivl, exit_x, exit_y, exit_a, exit_b, escaped, perp, steps);
   return (int)cudaGetLastError();
 }

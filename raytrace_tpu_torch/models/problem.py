@@ -14,6 +14,12 @@ in numpy and copies it to the requested device once per call:
   f32 casts of f64 differences;
 * the separable seed factors with their pchip gradients.
 
+A call builds its tables as host numpy arrays (``*_arrays``), packs them
+into one host buffer (:func:`pack_arrays`, pinned for a CUDA device) and
+copies that buffer to the device at once; :func:`unpack_arrays` cuts the
+device copy back into tensors (views of the one buffer), and the
+``*_from_tensors`` functions assemble the device structures from them.
+
 Every function takes an explicit ``device``; nothing here keeps global
 device state.
 """
@@ -29,7 +35,9 @@ from raytrace_tpu_torch.ops import interp
 from raytrace_tpu_torch.structures import RayGain, RaySeed
 
 __all__ = ["DeviceGain", "DeviceSeed", "DeviceBeam", "gain_arrays",
-           "gain_to_device", "prepare_gain", "prepare_seed", "prepare_beam"]
+           "gain_to_device", "prepare_gain", "seed_arrays", "seed_from_tensors",
+           "beam_arrays", "beam_from_tensors", "prepare_beam",
+           "pack_arrays", "unpack_arrays"]
 
 
 class DeviceGain(NamedTuple):
@@ -164,34 +172,81 @@ def prepare_gain(gains: list[RayGain], device="cpu") -> DeviceGain:
     return gain_to_device(gain_arrays(gains), device)
 
 
-def prepare_seed(seed: RaySeed, device="cpu") -> DeviceSeed:
-    """Seed tables with host-precomputed pchip gradients on ``device``."""
-    def dev(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=device)
-
-    xs, fs, g1s, g2s = [], [], [], []
+def seed_arrays(seed: RaySeed) -> dict:
+    """Host f64 arrays of the DeviceSeed layout, with the pchip gradients
+    computed here: ``x<a>``, ``f<a>``, ``g1_<a>``, ``g2_<a>`` per axis a of
+    (x, y, a, b), and the frequency profile ``fv``."""
+    out = {}
     for axis in range(4):
         xi = np.asarray(seed.x[axis], np.float64)
         fi = np.asarray(seed.f[axis], np.float64)
         g1, g2 = interp.pchip_coefficients(xi, fi)
-        xs.append(dev(xi))
-        fs.append(dev(fi))
-        g1s.append(dev(g1))
-        g2s.append(dev(g2))
+        out.update({f"x{axis}": xi, f"f{axis}": fi, f"g1_{axis}": g1,
+                    f"g2_{axis}": g2})
+    out["fv"] = np.asarray(seed.f[4], np.float64)
+    return out
+
+
+def seed_from_tensors(t: dict, seed: RaySeed) -> DeviceSeed:
+    """DeviceSeed from the tensors of :func:`seed_arrays`."""
     return DeviceSeed(
-        xs=tuple(xs), fs=tuple(fs), g1s=tuple(g1s), g2s=tuple(g2s),
-        fv=dev(seed.f[4]), f0=float(seed.f0),
+        xs=tuple(t[f"x{a}"] for a in range(4)),
+        fs=tuple(t[f"f{a}"] for a in range(4)),
+        g1s=tuple(t[f"g1_{a}"] for a in range(4)),
+        g2s=tuple(t[f"g2_{a}"] for a in range(4)),
+        fv=t["fv"], f0=float(seed.f0),
         lo=tuple(float(seed.x[i][0]) for i in range(4)),
         hi=tuple(float(seed.x[i][-1]) for i in range(4)))
 
 
+def beam_arrays(beam) -> dict:
+    """Host f64 arrays of the DeviceBeam grids."""
+    return {k: np.asarray(getattr(beam, k), np.float64)
+            for k in ("x", "y", "a", "b", "dv")}
+
+
+def beam_from_tensors(t: dict, beam) -> DeviceBeam:
+    """DeviceBeam from the tensors of :func:`beam_arrays`."""
+    return DeviceBeam(
+        x=t["x"], y=t["y"], a=t["a"], b=t["b"], dv=t["dv"],
+        dx=float(beam.dx), dy=float(beam.dy), da=float(beam.da),
+        db=float(beam.db), y0_nonneg=bool(beam.y[0] >= 0.0))
+
+
 def prepare_beam(beam, device="cpu") -> DeviceBeam:
     """The EUV beam's grids on ``device``."""
-    def dev(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+    return beam_from_tensors({k: torch.as_tensor(v, device=device)
+                              for k, v in beam_arrays(beam).items()}, beam)
 
-    return DeviceBeam(
-        x=dev(beam.x), y=dev(beam.y), a=dev(beam.a), b=dev(beam.b),
-        dv=dev(beam.dv), dx=float(beam.dx), dy=float(beam.dy),
-        da=float(beam.da), db=float(beam.db),
-        y0_nonneg=bool(beam.y[0] >= 0.0))
+
+#: byte alignment of each array in a packed buffer (>= every itemsize, so
+#: every view of the buffer is aligned for its dtype)
+_ALIGN = 16
+
+
+def pack_arrays(arrays: dict, pin: bool = False):
+    """Pack named host arrays into one uint8 tensor (page-locked with
+    ``pin``, so that a copy to a CUDA device can run asynchronously).
+    Returns ``(buffer, layout)`` for :func:`unpack_arrays`."""
+    layout, off = [], 0
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        layout.append((name, off, a.dtype, a.shape))
+        off += -(-a.nbytes // _ALIGN) * _ALIGN
+    buf = torch.empty(max(off, _ALIGN), dtype=torch.uint8, pin_memory=pin)
+    view = buf.numpy()
+    for (_name, o, _dtype, _shape), a in zip(layout, arrays.values()):
+        a = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        view[o:o + a.size] = a
+    return buf, layout
+
+
+def unpack_arrays(buf: torch.Tensor, layout) -> dict:
+    """Tensors of a packed buffer (on whatever device ``buf`` lies), views
+    of it by the ``layout`` of :func:`pack_arrays`."""
+    out = {}
+    for name, off, dtype, shape in layout:
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        out[name] = buf[off:off + nbytes].view(tdtype).reshape(shape)
+    return out

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 At first use, ``nvcc`` compiles every ``.cu`` file under
-``raytrace_tpu_torch/csrc/`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, under ``build/raytrace_tpu_torch/<hash>/``
-at the root of the checkout (``build/`` is git-ignored). The directory name
+``raytrace_tpu_torch/csrc/`` for Hopper (``sm_90a``), one process per file,
+all started together, and links the objects into one shared library with a
+plain C interface, under ``build/raytrace_tpu_torch/<hash>/`` at the root of
+the checkout (``build/`` is git-ignored). The directory name
 is a hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is. The library is loaded with ``ctypes``;
 each C entry returns ``cudaGetLastError()`` of its launch.
@@ -27,12 +28,11 @@ __all__ = ["load_library", "build_info", "check", "NVCC_FLAGS", "CSRC_DIR"]
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch"
 
-#: -fmad=false: every f32 product and sum rounds on its own, as in the plain
-#: PyTorch twins (see csrc/trace.cu). -Xptxas -v records registers and
-#: spills per kernel in the build log.
+#: -fmad=false: every product and sum rounds on its own, as in the plain
+#: PyTorch twins (see csrc/trace.cu, csrc/amplify.cu). -Xptxas -v records
+#: registers and spills per kernel in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -41,8 +41,10 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 #: would be cut to 32 bits), sizes as c_int / c_int64, scalars as c_float
 _SIGNATURES = {
     "rt_trace": [_P] * 4 + [_I64] + [_P] * 13 + [_I] * 3 + [_F] * 2
-                + [_I] * 2 + [_P] * 9 + [_P],
+                + [_I] * 2 + [_P] * 10 + [_P],
     "rt_deposit": [_P, _P, _P, _I64, _I, _I, _P],
+    "rt_amplify_gain": [_P] * 4 + [_I64] + [_I] * 4 + [_P] * 3,
+    "rt_gather_probe": [_P] * 3 + [_I64] + [_I] * 2 + [_P],
 }
 
 _lib = None
@@ -80,19 +82,10 @@ def load_library() -> ctypes.CDLL:
         _info.update(built=False, seconds=0.0, path=str(so))
     else:
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".tmp-{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, so)
-        _info.update(built=True, seconds=seconds, path=str(so),
-                     log=r.stdout + r.stderr)
+        log = _build(out_dir, so)
+        _info.update(built=True, seconds=time.perf_counter() - t0,
+                     path=str(so), log=log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -100,6 +93,43 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def _build(out_dir: Path, so: Path) -> str:
+    """Compile each source to an object (all nvcc processes at once), link
+    them into ``so``; returns the compiler log (also in ``build.log``)."""
+    nvcc = _nvcc()
+    tag = f".tmp-{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out_dir / f"{tag}-{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        tmp = out_dir / f"{tag}.so"
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+               *[str(obj) for _cmd, obj, _proc in jobs]]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(r.stderr)
+        else:
+            os.replace(tmp, so)
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (out_dir / "build.log").write_text(text)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return text
 
 
 def build_info() -> dict:

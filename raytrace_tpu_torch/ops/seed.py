@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from raytrace_tpu_torch.models.problem import DeviceSeed
@@ -37,13 +36,12 @@ class EntrySeedTables(NamedTuple):
 
 def make_entry_seed_tables(seed: DeviceSeed, src_grids,
                            K: int) -> EntrySeedTables:
-    """Factors at the f32-cast grid points (the trace receives the ray
-    coordinates as f32 casts of the f64 grids), in f64."""
+    """Factors at the grid points ``src_grids`` (per axis x, y, a, b: the
+    f32 ray coordinates the trace receives, f32 casts of the f64 grids, as
+    tensors on the seed's device), evaluated in f64."""
     tabs = []
     for axis, grid in enumerate(src_grids):
-        pts = torch.as_tensor(
-            np.asarray(grid, np.float64).astype(np.float32).astype(np.float64),
-            device=seed.fv.device)
+        pts = grid.to(torch.float64)
         vals = pchip_eval(seed.xs[axis], seed.fs[axis], seed.g1s[axis],
                           seed.g2s[axis], pts)
         inside = (pts >= seed.lo[axis]) & (pts <= seed.hi[axis])

@@ -89,7 +89,7 @@ def _propagate(act, sx, sy, sz, n0, dndx, dndy, box0, box1, box2, c):
     """Batched ``propagate`` (RayTraceImageHelper.h:270-313): adaptive
     sub-steps in a locally linear index field until the displacement leaves
     the |r| < box region or n drifts 0.05. Returns (rx, ry, rz, sx, sy, sz,
-    path).
+    path, nst), ``nst`` the i32 number of micro-steps each lane took.
 
     Every division is a tensor by a tensor, one rounding each: PyTorch
     computes ``scalar / tensor`` as ``reciprocal(tensor) * scalar`` and, on
@@ -108,9 +108,11 @@ def _propagate(act, sx, sy, sz, n0, dndx, dndy, box0, box1, box2, c):
     ry = torch.zeros_like(sx)
     rz = torch.zeros_like(sx)
     path = torch.zeros_like(sx)
+    nst = torch.zeros(sx.shape, dtype=torch.int32, device=sx.device)
     # entry test: r = 0 and n = n0 make it hold whenever every box is > 0
     act = act & (box0 > 0) & (box1 > 0) & (box2 > 0)
     while bool(act.any()):
+        nst = nst + act.to(torch.int32)
         n = n0 + rx * dndx + ry * dndy
         t = (sx * dndx + sy * dndy + 1e-12) / n
         fx = dndx / n - sx * t
@@ -141,14 +143,15 @@ def _propagate(act, sx, sy, sz, n0, dndx, dndy, box0, box1, box2, c):
         # computed one body earlier, RayTraceImageHelper.h:279)
         act = (act & (torch.abs(rx) < box0) & (torch.abs(ry) < box1)
                & (torch.abs(rz) < box2) & (torch.abs(n - n0) < 0.05))
-    return rx, ry, rz, sx, sy, sz, path
+    return rx, ry, rz, sx, sy, sz, path, nst
 
 
 def _cell_walk(seg: int, gain: DeviceGain, ray: dict, z, z_stop,
                c: float, use_emis: bool):
     """Cell walk for one (segment, sub-length) (RayTraceImageHelper.h:
-    460-512). ``ray`` holds px, py, sx, sy, sz (f32) and escaped (bool) and
-    is updated in place; returns (z, gvl, evl, ivl)."""
+    460-512). ``ray`` holds px, py, sx, sy, sz (f32), escaped (bool) and
+    the micro-step count nst (i32) and is updated in place; returns (z, gvl,
+    evl, ivl)."""
     nx_pad = gain.x.shape[1]
     xg, yg = gain.x[seg], gain.y[seg]
     cdxg, cdyg = gain.cdx[seg], gain.cdy[seg]
@@ -229,8 +232,9 @@ def _cell_walk(seg: int, gain: DeviceGain, ray: dict, z, z_stop,
             if absy:
                 dndy = torch.where(l_py < 0, -dndy, dndy)
             box2 = dz2 - l_z2
-            rx, ry, rz, nsx, nsy, nsz, path = _propagate(
+            rx, ry, rz, nsx, nsy, nsz, path, nst = _propagate(
                 act1, l_sx, l_sy, l_sz, n0, dndx, dndy, box0, box1, box2, c)
+            ray["nst"] = ray["nst"] + nst
             l_px = torch.where(act1, l_px + rx, l_px)
             l_py = torch.where(act1, l_py + ry, l_py)
             l_pz = torch.where(act1, l_pz + rz, l_pz)
@@ -256,8 +260,8 @@ def _cell_walk(seg: int, gain: DeviceGain, ray: dict, z, z_stop,
 
 
 def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
-                      method: int, c: float = 0.5,
-                      use_emis: bool = True) -> TraceResult:
+                      method: int, c: float = 0.5, use_emis: bool = True,
+                      counts: bool = False):
     """Propagate a batch of rays through all N-1 length segments.
 
     ``rays``: dict of f32 tensors ``x, y, a, b`` of shape [B] (entry
@@ -265,6 +269,10 @@ def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
     backward (ASE), 2 = forward (seeded). Returns per-(segment,
     sub-length) path integrals and the exit ray. ``N = 1`` gives empty
     ``[B, 0, 3]`` path integrals and the entry ray as the exit ray.
+
+    With ``counts``, returns ``(TraceResult, steps)``: ``steps`` [B] i32 is
+    each ray's number of ``propagate`` micro-steps over the whole trace,
+    the cost the stream's reorder sorts by.
     """
     B = rays["x"].shape[0]
     dev = rays["x"].device
@@ -272,7 +280,8 @@ def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
     sx, sy, sz = ray_directions(rays["a"], rays["b"], method)
     ray = {"px": rays["x"].float(), "py": rays["y"].float(),
            "sx": sx, "sy": sy, "sz": sz,
-           "escaped": torch.zeros(B, dtype=torch.bool, device=dev)}
+           "escaped": torch.zeros(B, dtype=torch.bool, device=dev),
+           "nst": torch.zeros(B, dtype=torch.int32, device=dev)}
     gvl_all = torch.zeros((B, nseg, N_SUB), dtype=torch.float32, device=dev)
     evl_all = torch.zeros_like(gvl_all)
     ivl_all = torch.zeros((B, nseg, N_SUB), dtype=torch.int32, device=dev)
@@ -289,7 +298,8 @@ def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
             gvl_all[:, ii - 1, isub] = gvl
             evl_all[:, ii - 1, isub] = evl
             ivl_all[:, ii - 1, isub] = ivl
-    return _exit_ray(ray, gvl_all, evl_all, ivl_all)
+    res = _exit_ray(ray, gvl_all, evl_all, ivl_all)
+    return (res, ray["nst"]) if counts else res
 
 
 def _exit_ray(ray, gvl, evl, ivl) -> TraceResult:

@@ -9,7 +9,9 @@ see ``csrc/trace.cu`` for its design and precision placement.
 
 :func:`trace_batch` dispatches on the tensors' device: CPU tensors take the
 plain twin, CUDA tensors launch the kernel (or raise). ``launch_count``
-counts kernel launches.
+counts kernel launches. With ``counts=True`` both also return each ray's
+number of propagate micro-steps (the counts variant the stream's reorder
+sorts by; the Pallas kernel's ``trace_tiles(counts=True)``).
 """
 
 from __future__ import annotations
@@ -63,33 +65,36 @@ def _check_inputs(rays: dict, gain: DeviceGain, N: int) -> int:
 
 
 def trace_batch(rays: dict, N: int, dz0: float, gain: DeviceGain,
-                method: int, c: float = 0.5,
-                use_emis: bool = True) -> TraceResult:
+                method: int, c: float = 0.5, use_emis: bool = True,
+                counts: bool = False):
     """Trace a batch of rays: kernel B1 for CUDA tensors, the plain twin for
     CPU tensors. Arguments and result as
     :func:`~raytrace_tpu_torch.ops.stepper.trace_batch_plain`."""
     dev = rays["x"].device
     if dev.type == "cpu":
-        return trace_batch_plain(rays, N, dz0, gain, method, c, use_emis)
+        return trace_batch_plain(rays, N, dz0, gain, method, c, use_emis,
+                                 counts)
     if dev.type != "cuda":
         raise ValueError(f"trace_batch: unsupported device {dev}")
     B = _check_inputs(rays, gain, N)
     nseg = max(N - 1, 0)
     if nseg == 0 or B == 0:
         # nothing to trace: the exit ray is the entry ray
-        return trace_batch_plain(rays, N, dz0, gain, method, c, use_emis)
+        return trace_batch_plain(rays, N, dz0, gain, method, c, use_emis,
+                                 counts)
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = _launch(cuda_lib.load_library(), rays, B, N, dz0, gain, method, c,
-                  use_emis, stream)
+                  use_emis, stream, counts)
     global launch_count
     launch_count += 1
     return out
 
 
-def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis,
-            stream) -> TraceResult:
+def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
+            counts=False):
     """Allocate the outputs and launch ``rt_trace`` of ``lib`` on
-    ``stream``; inputs already checked."""
+    ``stream``; inputs already checked. Returns the TraceResult, and the
+    micro-step counts too with ``counts``."""
     dev = rays["x"].device
     nseg = N - 1
     f32 = dict(dtype=torch.float32, device=dev)
@@ -99,6 +104,7 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis,
     ex, ey, ea, eb = (torch.empty(B, **f32) for _ in range(4))
     esc = torch.empty(B, dtype=torch.uint8, device=dev)
     perp = torch.empty(B, dtype=torch.uint8, device=dev)
+    steps = torch.empty(B, dtype=torch.int32, device=dev) if counts else None
     absy = gain.abs_y.to(torch.int32)
     rc = lib.rt_trace(
         rays["x"].data_ptr(), rays["y"].data_ptr(), rays["a"].data_ptr(),
@@ -111,8 +117,9 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis,
         float(dz0), float(c), int(method), int(bool(use_emis)),
         gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(), ex.data_ptr(),
         ey.data_ptr(), ea.data_ptr(), eb.data_ptr(), esc.data_ptr(),
-        perp.data_ptr(), stream)
+        perp.data_ptr(), None if steps is None else steps.data_ptr(), stream)
     cuda_lib.check(rc, "rt_trace")
-    return TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=ex, exit_y=ey,
-                       exit_a=ea, exit_b=eb, escaped=esc.view(torch.bool),
-                       perp=perp.view(torch.bool))
+    res = TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=ex, exit_y=ey,
+                      exit_a=ea, exit_b=eb, escaped=esc.view(torch.bool),
+                      perp=perp.view(torch.bool))
+    return (res, steps) if counts else res

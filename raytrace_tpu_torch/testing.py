@@ -1,21 +1,125 @@
-"""Synthetic problem generation for tests and shipped-shape runs.
+"""Synthetic problem generation and stream timing for tests and
+shipped-shape runs.
 
 Builds physically-sane random ``create_image`` work units shaped like the
 production snapshots (plasma gain column, half-plane y symmetry, optional
 separable seed). :func:`synthetic_problem` is a bit-identical copy of
 ``raytrace_tpu.testing.synthetic_problem``, so both packages see the same
-work unit for the same arguments.
+work unit for the same arguments. :func:`perturbed_problems` and the
+stream timers follow ``raytrace_tpu.testing``.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
+from raytrace_tpu_torch.io.loader import load_input, scale_problem
 from raytrace_tpu_torch.structures import (
     CreateImageProblem, EUVBeam, RayGain, RaySeed, SeedBeam,
 )
 
-__all__ = ["synthetic_problem"]
+__all__ = ["synthetic_problem", "perturbed_problems", "time_stream_rounds",
+           "time_stream_detailed", "amplify_inputs"]
+
+
+def amplify_inputs(B=1024, nseg=2, nsub=3, cells=2756, K=82, seed=0,
+                   spread=None):
+    """Trace-shaped inputs of the gain-only amplify as numpy arrays
+    ``(ivl [B, nseg, nsub] i32, gvl f32, gv [nseg, cells, K] f32)``, at the
+    seeded shipped widths by default: random cell ids, or with ``spread``
+    ids clustered per 256-ray block (coherent rays), as
+    tests/test_pallas_amplify.py makes them."""
+    rng = np.random.default_rng(seed)
+    if spread is None:
+        ivl = rng.integers(0, cells, size=(B, nseg, nsub)).astype(np.int32)
+    else:
+        ivl = np.empty((B, nseg, nsub), np.int32)
+        for b0 in range(0, B, 256):
+            c0 = int(rng.integers(0, cells))
+            ivl[b0:b0 + 256] = np.clip(
+                c0 + rng.integers(-spread, spread,
+                                  size=(len(ivl[b0:b0 + 256]), nseg, nsub)),
+                0, cells - 1)
+    gvl = (rng.standard_normal((B, nseg, nsub)) * 0.1).astype(np.float32)
+    gv = (rng.standard_normal((nseg, cells, K)) * 0.5).astype(np.float32)
+    return ivl, gvl, gv
+
+
+def perturbed_problems(source, n, salt=0, scale=None):
+    """``n`` fresh work units, each with its gain ``g0`` tables scaled by a
+    distinct factor ``1 + 1e-5*(salt*n + i + 1)``.
+
+    ``source`` is a ``.dat`` snapshot path, or a callable that returns a
+    fresh problem (``functools.partial(synthetic_problem, ...)``).
+    Production changes the gain tables every iteration (Readme.txt:43), so
+    a serving stream is timed over distinct tables; vary ``salt`` across
+    timing rounds so factors never repeat within a process.
+    """
+    probs = []
+    for i in range(n):
+        p = source() if callable(source) else load_input(source)[0]
+        if scale is not None and scale != 1.0:
+            scale_problem(p, scale)
+        f = np.float32(1.0 + 1e-5 * (salt * n + i + 1))
+        for g in p.gain:
+            g.g0 = (np.asarray(g.g0, np.float32) * f).astype(np.float32)
+        probs.append(p)
+    return probs
+
+
+def time_stream_rounds(source, n_units, rounds, consume, salt0=0,
+                       scale=None):
+    """Per-call seconds of a serving-mode stream over fresh work units:
+    each round builds ``n_units`` units with :func:`perturbed_problems`,
+    ``consume(units)`` drains the stream, and the round's wall time is
+    divided by the unit count. One entry per round."""
+    def make_stream(units):
+        def gen():
+            consume(units)
+            yield None  # one mark at the drain's end: the round wall only
+        return gen()
+
+    per_call, _ = time_stream_detailed(source, n_units, rounds, make_stream,
+                                       salt0=salt0, scale=scale)
+    return per_call
+
+
+def time_stream_detailed(source, n_units, rounds, make_stream, salt0=0,
+                         scale=None):
+    """Per-yield wall times of a serving-mode stream.
+
+    ``make_stream(units)`` returns the stream iterator; every yield is
+    timestamped. Returns ``(per_call, rounds_detail)``: ``per_call`` is the
+    per-round round_wall / n_units, and each ``rounds_detail`` entry is
+    ``{"round_wall_s", "fill_s" (first-yield latency: call 0's upload,
+    compute and readback with nothing to overlap), "yield_s" (spacing of
+    the later yields, the steady-state statistic)}``.
+
+    Raises ``ValueError`` for ``n_units < 1`` or a stream that yields
+    nothing.
+    """
+    if n_units < 1:
+        raise ValueError(f"time_stream_detailed: n_units must be >= 1, got "
+                         f"{n_units}")
+    per_call, detail = [], []
+    for r in range(rounds):
+        units = perturbed_problems(source, n_units, salt=salt0 + r,
+                                   scale=scale)
+        t0 = time.perf_counter()
+        marks = [time.perf_counter() for _ in make_stream(units)]
+        if not marks:
+            raise ValueError("time_stream_detailed: the stream yielded "
+                             "nothing")
+        wall = marks[-1] - t0
+        per_call.append(wall / len(units))
+        detail.append({
+            "round_wall_s": wall,
+            "fill_s": marks[0] - t0,
+            "yield_s": [b - a for a, b in zip(marks, marks[1:])],
+        })
+    return per_call, detail
 
 
 def _uniform_grid(lo, hi, n):

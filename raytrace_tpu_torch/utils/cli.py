@@ -13,6 +13,20 @@ Usage (the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
       -profile             trace the timed calls with torch.profiler and
                            print device time per kernel and the device's
                            busy share of the timed wall time
+      -stream=N            also time serving mode: N work units with
+                           distinct gain tables (perturbed copies of the
+                           file, as production changes the tables every
+                           iteration) through create_image_stream, two
+                           rounds. Adds a "<method>+stream" row (round wall
+                           / N, pipeline fill included) and a
+                           "<method>+stream.steady" row (spacing of the
+                           yields after the first, pipeline full); no golden
+                           check (the tables are perturbed). The reference
+                           has no such mode: its harness times synchronous
+                           calls
+      -reorder             with -stream: sort each call's rays by the
+                           previous call's per-ray micro-step counts (the
+                           cost-feedback reorder; rows "+stream+reorder")
 
 Per file and method: a warmup call (it also builds the kernels; the
 reference's GPU warmup fixture, CreateImage.cpp:118-132), ``iterations``
@@ -26,12 +40,15 @@ import sys
 import time
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 from raytrace_tpu_torch.io.loader import load_input
 from raytrace_tpu_torch.models.ray_tracer import (available_methods,
                                                   create_image,
+                                                  create_image_stream,
                                                   resolve_method)
+from raytrace_tpu_torch.testing import time_stream_detailed
 from raytrace_tpu_torch.utils.stats import (TimingStats, check_ans,
                                             stability_errors)
 from raytrace_tpu_torch.utils.timer import profiler
@@ -47,6 +64,8 @@ class Options:
         self.iterations = 5
         self.scale = 1.0
         self.profile = False
+        self.stream = 0
+        self.reorder = False
         self.files: list[str] = []
         for arg in argv:
             if arg.startswith("-methods="):
@@ -58,10 +77,17 @@ class Options:
                 self.scale = float(arg.split("=", 1)[1])
             elif arg == "-profile":
                 self.profile = True
+            elif arg.startswith("-stream="):
+                self.stream = int(arg.split("=", 1)[1])
+            elif arg == "-reorder":
+                self.reorder = True
             elif arg.startswith("-"):
                 raise SystemExit(f"Unknown option: {arg}")
             else:
                 self.files.append(arg)
+        if self.reorder and self.stream <= 0:
+            raise SystemExit("-reorder requires -stream=N (it reorders the "
+                             "serving stream's rays)")
 
 
 @contextmanager
@@ -97,6 +123,30 @@ def _print_profile(prof, wall_s: float, calls: int, top: int = 12) -> None:
               f"{e.count / calls:7.1f}x  {e.key[:100]}")
 
 
+def _stream_rows(filename, options, label, method, device, rows) -> int:
+    """Time ``options.stream`` distinct-table units through
+    create_image_stream (two rounds); append the per-call and steady rows.
+    Returns the number of non-finite results."""
+    n_bad = 0
+
+    def make_stream(units):
+        nonlocal n_bad
+        for image, i_ang in create_image_stream(units, method, device,
+                                                reorder=options.reorder):
+            n_bad += not (np.isfinite(image).all()
+                          and np.isfinite(i_ang).all())
+            yield image, i_ang
+
+    per_call, detail = time_stream_detailed(filename, options.stream, 2,
+                                            make_stream, scale=options.scale)
+    tag = "+stream+reorder" if options.reorder else "+stream"
+    rows.append((f"{label}{tag}", TimingStats.of(per_call)))
+    yields = [y for d in detail for y in d["yield_s"]]
+    if yields:
+        rows.append((f"{label}{tag}.steady", TimingStats.of(yields)))
+    return n_bad
+
+
 def run_tests(filename: str, options: Options) -> int:
     """Benchmark one input file (run_tests, CreateImage.cpp:84-190)."""
     print(f"\nRunning tests for {filename}\n")
@@ -123,6 +173,9 @@ def run_tests(filename: str, options: Options) -> int:
             if not check_ans(image0, i_ang0, image, i_ang):
                 n_errors += 1
         n_errors += stability_errors(stats)
+        if options.stream > 0:
+            n_errors += _stream_rows(filename, options, label, method,
+                                     device, rows)
 
     w = max(14, max((len(r[0]) for r in rows), default=14))
     print(f"\n{'METHOD':>{w}s} {'Avg':>8s} {'Min':>8s} {'Max':>8s} "

@@ -8,8 +8,10 @@ C++ (``__ldg`` -> a load, ``atomicAdd`` -> an add, the ``<<<>>>`` launch ->
 a loop over blocks and threads), with contraction off as nvcc's
 ``-fmad=false``. The result must equal the plain twin bitwise: it checks
 that the kernel computes what the twin computes, in the same order of
-rounding. The kernels' behaviour on the card (compiled by nvcc) is checked
-by tests/test_torch_kernels_cuda.py and chip_smoke.py.
+rounding (for B3's ``exp`` the host's libm stands in for CUDA's, so only
+the log-gain is held bitwise and the spectrum to 1e-14). The kernels'
+behaviour on the card (compiled by nvcc) is checked by
+tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
 import ctypes
@@ -22,9 +24,10 @@ import pytest
 import torch
 
 from raytrace_tpu_torch.models.problem import prepare_gain
-from raytrace_tpu_torch.ops import cuda_lib, deposit_kernel, trace_kernel
+from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, deposit_kernel,
+                                    trace_kernel)
 from raytrace_tpu_torch.ops.stepper import trace_batch_plain
-from raytrace_tpu_torch.testing import synthetic_problem
+from raytrace_tpu_torch.testing import amplify_inputs, synthetic_problem
 
 torch.set_num_threads(2)
 
@@ -32,7 +35,7 @@ _SHIM = r"""
 #pragma once
 #include <cmath>
 #include <cstdint>
-using std::tan; using std::atan;
+using std::tan; using std::atan; using std::exp;
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -97,17 +100,23 @@ def _rays(p, n, seed):
 ], ids=["straight", "refracting", "warped-grid", "full-plane",
         "shipped-widths"])
 def test_trace_source_equals_twin(host_lib, method, kwargs):
+    """The counts variant: every output and the per-ray micro-step counts
+    equal the twin's."""
     p = synthetic_problem(seeded=method == 2, **kwargs)
     rays = _rays(p, 512, 1)
     gain = prepare_gain(p.gain)
     use_emis = method == 1
-    want = trace_batch_plain(rays, p.N, p.euv_beam.dz, gain, method,
-                             use_emis=use_emis)
+    want, want_steps = trace_batch_plain(rays, p.N, p.euv_beam.dz, gain,
+                                         method, use_emis=use_emis,
+                                         counts=True)
     B = trace_kernel._check_inputs(rays, gain, p.N)
-    got = trace_kernel._launch(host_lib, rays, B, p.N, p.euv_beam.dz, gain,
-                               method, 0.5, use_emis, None)
+    got, steps = trace_kernel._launch(host_lib, rays, B, p.N,
+                                      p.euv_beam.dz, gain, method, 0.5,
+                                      use_emis, None, counts=True)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(steps, want_steps)
+    assert steps.min().item() >= 1
 
 
 @pytest.mark.parametrize("method", [1, 2])
@@ -140,3 +149,28 @@ def test_deposit_source_equals_twin(host_lib):
     got = torch.zeros((C, K), dtype=torch.float64)
     deposit_kernel._launch(host_lib, got, contrib, bins, B, K, C, None)
     torch.testing.assert_close(got, want, rtol=1e-14, atol=1e-14)
+
+
+@pytest.mark.parametrize("nseg,spread", [(2, None), (2, 40), (1, None)])
+def test_amplify_source_equals_twin(host_lib, nseg, spread):
+    """B3 at the seeded shipped widths (cells 2756, K 82): the log-gain
+    equals the twin's bitwise, the spectrum within 1e-14."""
+    ivl, gvl, gv = (torch.from_numpy(a) for a in
+                    amplify_inputs(B=1024, nseg=nseg, spread=spread))
+    rng = np.random.default_rng(4)
+    Iv0 = torch.from_numpy(rng.random((ivl.shape[0], gv.shape[2])))
+    amplify_kernel._check(Iv0, ivl, gvl, gv)
+    got, got_gl = amplify_kernel._launch(host_lib, Iv0, ivl, gvl, gv, None,
+                                         log_gain=True)
+    assert torch.equal(got_gl, amplify_kernel.log_gain_plain(ivl, gvl, gv))
+    want = amplify_kernel.amplify_gain_plain(Iv0, ivl, gvl, gv)
+    torch.testing.assert_close(got, want, rtol=1e-14, atol=0)
+
+
+def test_gather_probe_source_equals_twin(host_lib):
+    """P1: K dependent gathers per thread equal the twin bitwise."""
+    from raytrace_tpu_torch.tools import gather_probe
+
+    tab, idx = gather_probe.probe_inputs(rows=8, seed=1)
+    got = gather_probe._launch(host_lib, tab, idx, 37, None)
+    assert torch.equal(got, gather_probe.gather_probe_plain(tab, idx, 37))

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from raytrace_tpu_torch.models.problem import prepare_gain
-from raytrace_tpu_torch.ops import deposit_kernel, trace_kernel
-from raytrace_tpu_torch.testing import synthetic_problem
+from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, deposit_kernel,
+                                    trace_kernel)
+from raytrace_tpu_torch.testing import amplify_inputs, synthetic_problem
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +78,69 @@ def test_create_image_fixture_on_card(cuda):
     p, image0, i_ang0 = load_input(path)
     image, i_ang = create_image(p, "cuda", device=cuda)
     assert check_ans(image0, i_ang0, image, i_ang)
+
+
+@pytest.mark.parametrize("kwargs", [dict(refraction_free=True), dict()])
+@pytest.mark.parametrize("method", [1, 2])
+def test_trace_counts_vs_twin(cuda, method, kwargs):
+    """B1's counts variant: identical to the twin's counts on
+    refraction-free rays, the same median on refracting ones; the other
+    outputs as the normal launch."""
+    p = synthetic_problem(seeded=method == 2, **kwargs)
+    rays = _rays(p, 4096, 2, cuda)
+    gain = prepare_gain(p.gain, cuda)
+    args = (rays, p.N, p.euv_beam.dz, gain, method, 0.5, method == 1)
+    got, steps = trace_kernel.trace_batch(*args, counts=True)
+    plain = trace_kernel.trace_batch(*args)
+    want, want_steps = trace_kernel.trace_batch_plain(*args, counts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ivl, plain.ivl) and torch.equal(got.gvl, plain.gvl)
+    if kwargs.get("refraction_free"):
+        assert torch.equal(steps, want_steps)
+    else:
+        assert steps.float().median() == want_steps.float().median()
+    assert steps.min().item() >= 1
+
+
+@pytest.mark.parametrize("spread", [None, 40])
+def test_amplify_kernel_vs_twin(cuda, spread):
+    """B3 at the seeded shipped widths: the log-gain bitwise, the spectrum
+    within 1e-13 (CUDA's exp against PyTorch's)."""
+    ivl, gvl, gv = (torch.as_tensor(a, device=cuda)
+                    for a in amplify_inputs(B=65536, spread=spread))
+    rng = np.random.default_rng(6)
+    Iv0 = torch.as_tensor(rng.random((65536, gv.shape[2])), device=cuda)
+    before = amplify_kernel.launch_count
+    got = amplify_kernel.amplify_gain(Iv0, ivl, gvl, gv)
+    torch.cuda.synchronize()
+    assert amplify_kernel.launch_count == before + 1
+    _, gl = amplify_kernel._launch(cuda_lib.load_library(), Iv0, ivl, gvl,
+                                   gv, torch.cuda.current_stream().cuda_stream,
+                                   log_gain=True)
+    assert torch.equal(gl, amplify_kernel.log_gain_plain(ivl, gvl, gv))
+    want = amplify_kernel.amplify_gain_plain(Iv0, ivl, gvl, gv)
+    assert ((got - want).abs() / want.abs()).max().item() < 1e-13
+
+
+def test_gather_probe_kernel_vs_twin(cuda):
+    from raytrace_tpu_torch.tools import gather_probe
+
+    tab, idx = (t.to(cuda) for t in gather_probe.probe_inputs())
+    got = gather_probe.gather_probe(tab, idx, 64)
+    assert torch.equal(got, gather_probe.gather_probe_plain(tab, idx, 64))
+
+
+@pytest.mark.parametrize("reorder", [False, True])
+def test_stream_on_card_matches_sync(cuda, reorder):
+    """The stream's side streams and pinned buffers: every yield within
+    1e-12 of the synchronous call on the same unit."""
+    from raytrace_tpu_torch import create_image, create_image_stream
+
+    units = [synthetic_problem(seeded=i % 2 == 1, rng=i) for i in range(4)]
+    want = [create_image(synthetic_problem(seeded=i % 2 == 1, rng=i),
+                         "cuda", device=cuda) for i in range(4)]
+    got = list(create_image_stream(units, "cuda", device=cuda, depth=2,
+                                   reorder=reorder))
+    for (gi, ga), (wi, wa) in zip(got, want):
+        assert np.linalg.norm(gi - wi) <= 1e-12 * np.linalg.norm(wi)
+        assert np.linalg.norm(ga - wa) <= 1e-12 * np.linalg.norm(wa)

@@ -175,3 +175,35 @@ def test_wrapper_takes_the_twin_on_cpu():
     assert trace_kernel.launch_count == before
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("method", [1, 2])
+def test_counts_vs_pallas_interpret(method):
+    """The twin's per-ray micro-step counts (the counts variant the stream's
+    reorder sorts by) against ``pallas_kernel.trace_tiles(counts=True)`` on
+    one full tile of refraction-free rays: equal on every ray whose cell ids
+    agree (the Pallas grid-line tie class aside), and at least one step."""
+    from raytrace_tpu.ops import pallas_kernel as pk
+
+    p = synthetic_problem(refraction_free=True, seeded=method == 2)
+    n = pk.TILE
+    rays = _sample_rays(p, n, 13)
+    use_emis = method == 1
+    tiled = {k: jnp.asarray(v).reshape(1, pk.TILE_ROWS, pk.TILE_LANES)
+             for k, v in zip("xyab", rays)}
+    pg = pk.pack_gain_tables(p.gain, use_emis=use_emis)
+    out = pk.trace_tiles(tiled, p.N, p.euv_beam.dz, pg, method,
+                         interpret=True, counts=True)
+    nseg = p.N - 1
+    want_ivl = np.asarray(out[2]).transpose(0, 3, 4, 1, 2).reshape(
+        n, nseg, pk.N_SUB)
+    want_steps = np.asarray(out[-1]).reshape(n)
+    got, steps = trace_kernel.trace_batch(
+        {k: torch.from_numpy(v) for k, v in zip("xyab", rays)}, p.N,
+        p.euv_beam.dz, gain_from_numpy(jax_prepare_gain(p.gain,
+                                                        as_numpy=True)),
+        method, use_emis=use_emis, counts=True)
+    agree = (got.ivl.numpy() == want_ivl).reshape(n, -1).all(1)
+    assert agree.sum() >= n - n // 16
+    np.testing.assert_array_equal(steps.numpy()[agree], want_steps[agree])
+    assert steps.min().item() >= 1
