@@ -11,21 +11,31 @@ fails (non-zero exit, no result line) if any phase fails:
 2. build the CUDA kernels from ``raytrace_tpu_torch/csrc`` (one nvcc per
    source, in parallel; build seconds, registers per kernel);
 3. each kernel against its plain PyTorch twin on the card, at the paths'
-   shapes, each timed beside its twin with CUDA events:
-   trace B1 on refraction-free rays in both methods (cell ids, escape flags
-   and micro-step counts identical, path integrals within 1e-5 relative)
-   and on 65,536 rays of the ASE-shaped synthetic (median within 1e-5,
-   escape flags identical, median count equal), its counts variant timed
-   beside the normal launch; deposit B2 on seeded random bins (1e-12
-   relative); amplify B3 on one 2^20-ray chunk of the seeded shipped shape
-   traced by B1, K 82 (log-gain bitwise, spectrum within 1e-13 relative);
-   probe P1 at K 64 (bitwise);
+   shapes, each timed beside its twin with CUDA events, with its bound
+   (the larger of its bytes over 3.35 TB/s and its operations over 67
+   TFLOP/s f32 plus 34 TFLOP/s f64, counted from this run's inputs):
+   trace B1 on refraction-free rays in both methods and on 65,536 rays of
+   the ASE-shaped synthetic (every output and the micro-step counts
+   bitwise equal to the twin's), its counts variant timed beside the
+   normal launch; B1 on a 2^20-ray chunk of the seeded shipped
+   shape and on the whole ASE call: the census launch equal to the normal
+   one, the warp efficiency E of the micro-step counts, a timing in count
+   order beside launch order, and the operation bound from the counted
+   micro-steps and cell entries; the same on a seeded chunk whose gain
+   grid is warped (``non_uniform_gain=0.8``), there also bitwise equal to
+   the twin, counts included; amplify B3 on that seeded chunk traced by
+   B1 with its seed factors (log-gain bitwise, spectrum within 1e-13
+   relative, flags identical, and both flag bits from an fv with a
+   negative and a NaN entry); deposit B2 on seeded random bins (1e-12
+   relative) and at the real bins of both shapes, timed in turns with
+   ``index_add_`` (its ``library_ms``); probe P1 at K 64 (bitwise);
 4. with every launch count at 0: ``create_image`` on both golden fixtures
    (``check_ans`` at 5e-6 and a two-sided relative L2 below 1e-5 against
    the embedded golden), then the two shipped-shape synthetics (ASE
    60x25x19x14 = 399,000 rays, nv 52; seeded 120x25x51x51 = 7,803,000
    rays, nv 82; N 3, 106x26 gain grid) with one warmup and three timed
-   calls each; B1, B2 and B3 must have launched in this run;
+   calls each, the launches of each kernel in one call counted; B1, B2
+   and B3 must have launched in this run;
 5. with the counts at 0 again: ``create_image_stream`` at depth 2 over 4
    ASE and then 4 seeded shipped-shape units with distinct gain tables,
    without and with the reorder; every yield within 1e-12 relative L2 of
@@ -35,8 +45,9 @@ fails (non-zero exit, no result line) if any phase fails:
 6. with P1's count at 0: the probe tool's measurement
    (``raytrace_tpu_torch.tools.gather_probe.measure``), ns per dependent
    gather; P1 must have launched;
-7. the shipped-shape calls once more through the plain twins on the card:
-   image and I_ang within a relative L2 of 1e-5 of the kernels' result.
+7. the shipped-shape calls once more through the plain twins on the card,
+   in the kernels' 2^20-ray chunks: image and I_ang within a relative L2
+   of 1e-5 of the kernels' result.
 
 Prints one JSON line of per-kernel results, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. A longer record of every measurement
@@ -56,13 +67,25 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
 OUT_DIR = os.path.join(HERE, "chiprun_out")
+#: the device of the kernel phase's tensors
+DEV = "cuda"
+#: B2's random-bin checks at the image shapes (name, rays, K, image cells)
+RANDOM_BIN_SHAPES = (("ase", 399000, 52, 60 * 25),
+                     ("seed", 1 << 20, 82, 118 * 25))
 
-ASE_SHAPE = dict(nx=60, ny=25, na=19, nb=14, nv=52, N=3, gain_nx=106,
-                 gain_ny=26)
-SEED_SHAPE = dict(nx=118, ny=25, na=50, nb=50, nv=82, N=3, seeded=True,
-                  seed_dim=251, gain_nx=106, gain_ny=26)
+#: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+#: B1's operations, counted from csrc/trace.cu: per propagate micro-step,
+#: per cell entry in f32 (without and with emissivity) and in f64
+B1_OPS = dict(step_f32=81, cell_f32=36, cell_f32_emis=48, cell_f64=28)
 
 record: dict = {}
+#: the kernels' wrapper modules by name (set in main) and each kernel's
+#: launches in one synchronous call of each shipped shape
+WRAPPERS: dict = {}
+LAUNCHES_PER_CALL: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -104,28 +127,13 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def source_rays(p, n=None):
-    """The first ``n`` rays of the work unit in natural (b-fastest) order,
-    as the port's chunks enumerate them, on the card."""
-    from raytrace_tpu_torch.models.ray_tracer import _unflatten_rays
-
-    src = p.seed_beam if p.seed is not None else p.euv_beam
-    total = src.nx * src.ny * src.na * src.nb
-    ijkm = torch.arange(min(n or total, total), device="cuda")
-    i, j, k, m = _unflatten_rays(ijkm, (src.nx, src.ny, src.na, src.nb))
-    grids = [torch.as_tensor(np.asarray(g, np.float64), device="cuda")
-             .float() for g in (src.x, src.y, src.a, src.b)]
-    return {"x": grids[0][i], "y": grids[1][j], "a": grids[2][k],
-            "b": grids[3][m]}
-
-
 def trace_pair(p, rays):
     """B1 and its twin on ``rays``, both with the micro-step counts; the
     counts variant's other outputs must equal the normal launch's."""
     from raytrace_tpu_torch.models.problem import prepare_gain
     from raytrace_tpu_torch.ops import trace_kernel
 
-    g = prepare_gain(p.gain, "cuda")
+    g = prepare_gain(p.gain, DEV)
     method = 2 if p.seed is not None else 1
     use_emis = method == 1
     args = (rays, p.N, p.euv_beam.dz, g, method, 0.5, use_emis)
@@ -144,16 +152,51 @@ def rel_err(got, want):
     return ((got - want).abs() / want.abs().clamp_min(1e-6)).flatten()
 
 
+def bound(nbytes, f32_ops=0.0, f64_ops=0.0):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the HBM rate
+    and the operations over their type's peak rate (f32 and f64 times
+    added), in ms."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def warp_efficiency(steps):
+    """E = sum of the rays' micro-steps over sum over warps of 32 x the
+    warp's largest, in launch order (a partial last warp pads with 0)."""
+    s = steps.to(torch.int64)
+    s = torch.cat([s, s.new_zeros((-s.shape[0]) % 32)]).view(-1, 32)
+    return (s.sum() / (32 * s.max(dim=1).values).sum()).item()
+
+
+def in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
+    """Mean ms per call of each of ``fns``, timed in turns (a b b a ...);
+    returns every reading per name."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for r in range(2 * rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            out[n].append(cuda_ms(fns[n], iters))
+    return out
+
+
+def mean(xs):
+    return sum(xs) / len(xs)
+
+
 def phase_kernels(results):
-    from raytrace_tpu_torch.ops import deposit_kernel, trace_kernel
-    from raytrace_tpu_torch.testing import synthetic_problem
+    from raytrace_tpu_torch.ops import trace_kernel
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, source_rays,
+                                            synthetic_problem)
 
     # B1, refraction-free lockstep: geometry-determined step sequences
     worst = 0.0
     for method in (1, 2):
         p = synthetic_problem(refraction_free=True, seeded=method == 2,
                               **{k: v for k, v in ASE_SHAPE.items()})
-        got, want, _, steps, want_steps = trace_pair(p, source_rays(p, 65536))
+        got, want, _, steps, want_steps = trace_pair(
+            p, source_rays(p, 65536, DEV))
         if not torch.equal(steps, want_steps):
             fail(f"trace method {method} refraction-free: micro-step counts "
                  f"differ")
@@ -169,25 +212,27 @@ def phase_kernels(results):
         worst = max(worst, (got.gvl - want.gvl).abs().max().item())
         bitwise = all(torch.equal(getattr(got, f), getattr(want, f))
                       for f in got._fields)
-        print(f"trace refraction-free method {method}: ivl/escaped/counts "
-              f"identical, gvl/evl within 1e-5, bitwise {bitwise}",
-              flush=True)
+        if not bitwise:
+            fail(f"trace method {method} refraction-free: not bitwise equal "
+                 f"to the twin")
+        print(f"trace refraction-free method {method}: every output and the "
+              f"counts bitwise equal to the twin's", flush=True)
         record[f"trace_straight_{method}"] = dict(bitwise=bitwise)
 
     # B1 on 65,536 rays of the ASE-shaped synthetic
     p = synthetic_problem(**ASE_SHAPE)
-    got, want, args, steps, want_steps = trace_pair(p, source_rays(p, 65536))
+    got, want, args, steps, want_steps = trace_pair(
+        p, source_rays(p, 65536, DEV))
     med_steps = (steps.float().median().item(),
                  want_steps.float().median().item())
     if med_steps[0] != med_steps[1]:
         fail(f"trace ASE-shaped: median micro-step count {med_steps}")
     med = max(rel_err(got.gvl, want.gvl).median().item(),
               rel_err(got.evl, want.evl).median().item())
-    bitwise = all(torch.equal(getattr(got, f), getattr(want, f))
-                  for f in got._fields)
-    if med > 1e-5 or not torch.equal(got.escaped, want.escaped):
-        fail(f"trace ASE-shaped: median rel {med}, escaped equal "
-             f"{torch.equal(got.escaped, want.escaped)}")
+    bitwise = (all(torch.equal(getattr(got, f), getattr(want, f))
+                   for f in got._fields) and torch.equal(steps, want_steps))
+    if med > 1e-5 or not bitwise:
+        fail(f"trace ASE-shaped: median rel {med}, bitwise {bitwise}")
     worst = max(worst, (got.gvl - want.gvl).abs().max().item(),
                 (got.evl - want.evl).abs().max().item())
     ms = cuda_ms(lambda: trace_kernel.trace_batch(*args), 20)
@@ -201,95 +246,252 @@ def phase_kernels(results):
                                  counts_ms=ms_c, plain_ms=plain_ms,
                                  median_steps=med_steps[0])
 
-    # B1 over a whole call's rays: ASE is one chunk of 399,000 rays
-    all_rays = source_rays(p)
-    args_all = (all_rays,) + args[1:]
-    ms_all = cuda_ms(lambda: trace_kernel.trace_batch(*args_all), 5)
-    ms_all_c = cuda_ms(
-        lambda: trace_kernel.trace_batch(*args_all, counts=True), 5)
-    plain_all = cuda_ms(lambda: trace_kernel.trace_batch_plain(*args_all), 1)
-    print(f"trace ASE-shaped whole call ({all_rays['x'].shape[0]} rays): "
-          f"kernel {ms_all:.4f} ms, counts variant {ms_all_c:.4f} ms, plain "
-          f"{plain_all:.3f} ms", flush=True)
-    record["trace_ase_call"] = dict(rays=all_rays["x"].shape[0], ms=ms_all,
-                                    counts_ms=ms_all_c, plain_ms=plain_all)
-    results["trace"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    shapes = phase_trace_shapes(results)
+    results["trace"]["max_abs_err"] = worst
+    phase_amplify(results, shapes["seed_chunk"])
+    phase_deposit(results, shapes)
+    phase_probe_kernel(results)
 
-    # B2 on seeded random bins at the main path's image shapes
+
+def phase_trace_shapes(results):
+    """B1 at the main path's shapes (a 2^20-ray seeded chunk, the whole ASE
+    call, a seeded chunk on a warped gain grid): time, the counts variant, the warp efficiency E of the
+    micro-step counts in launch order and in count order (each timed), the
+    cell-entry census and the operation bound. Returns each shape's
+    problem, tables, rays and trace result."""
+    from raytrace_tpu_torch.models.problem import prepare_gain
+    from raytrace_tpu_torch.ops import cuda_lib, trace_kernel
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            source_rays, synthetic_problem)
+
+    lib = cuda_lib.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = {}
+    for name, shape, n in (
+            ("seed_chunk", SEED_SHAPE, 1 << 20),
+            ("ase_call", ASE_SHAPE, None),
+            # the gain grid warped t -> t^1.8: the interval search's guess
+            # from the grid's end points misses by up to ~20 cells
+            ("seed_chunk_warped", dict(SEED_SHAPE, non_uniform_gain=0.8),
+             1 << 20)):
+        p = synthetic_problem(**shape)
+        gain = prepare_gain(p.gain, DEV)
+        method = 2 if p.seed is not None else 1
+        use_emis = method == 1
+        rays = source_rays(p, n, DEV)
+        B = rays["x"].shape[0]
+        args = (p.N, p.euv_beam.dz, gain, method, 0.5, use_emis)
+        res = trace_kernel.trace_batch(rays, *args)
+        res_c, steps, cells = trace_kernel._launch(
+            lib, rays, B, *args, stream, census=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(getattr(res, f), getattr(res_c, f))
+                   for f in res._fields):
+            fail(f"trace {name}: the census launch's outputs differ")
+        if name == "seed_chunk_warped":
+            want, want_steps = trace_kernel.trace_batch_plain(
+                rays, *args, counts=True)
+            if not (all(torch.equal(getattr(res, f), getattr(want, f))
+                        for f in res._fields)
+                    and torch.equal(steps, want_steps)):
+                fail(f"trace {name}: not bitwise equal to the twin")
+        perm = torch.argsort(steps, stable=True)
+        rays_sorted = {k: v[perm].contiguous() for k, v in rays.items()}
+        eff = warp_efficiency(steps)
+        eff_sorted = warp_efficiency(steps[perm])
+        t = in_turns({"natural": lambda: trace_kernel.trace_batch(rays, *args),
+                      "sorted": lambda: trace_kernel.trace_batch(
+                          rays_sorted, *args)}, 10)
+        ms_c = cuda_ms(lambda: trace_kernel.trace_batch(rays, *args,
+                                                        counts=True), 10)
+        n_steps, n_cells = int(steps.sum()), int(cells.sum())
+        ops = B1_OPS
+        f32 = (n_steps * ops["step_f32"] + n_cells *
+               (ops["cell_f32_emis"] if use_emis else ops["cell_f32"]))
+        f64 = n_cells * ops["cell_f64"]
+        T = res.ivl.shape[1] * res.ivl.shape[2]
+        tables = sum(getattr(gain, k).numel() * getattr(gain, k)
+                     .element_size() for k in gain._fields
+                     if k not in ("gv", "gv0"))
+        nbytes = B * 16 + tables + B * (12 * T + 16 + 2)
+        b_ms, b_by = bound(nbytes, f32, f64)
+        ms = mean(t["natural"])
+        print(f"trace {name} ({B} rays, method {method}): kernel "
+              f"{t['natural']} ms, counts variant {ms_c:.4f} ms; in count "
+              f"order {t['sorted']} ms; E {eff:.4f} in launch order, "
+              f"{eff_sorted:.4f} in count order; micro-steps {n_steps} "
+              f"(median {steps.float().median().item()}), cell entries "
+              f"{n_cells}; {f32:.4e} f32 + {f64:.4e} f64 operations, "
+              f"{nbytes} bytes: bound {b_ms:.4f} ms by {b_by}, "
+              f"{b_ms / ms:.3f} of it reached", flush=True)
+        record[f"trace_{name}"] = dict(
+            rays=B, ms_readings=t["natural"], ms=ms, counts_ms=ms_c,
+            sorted_ms_readings=t["sorted"], sorted_ms=mean(t["sorted"]),
+            warp_efficiency=eff, warp_efficiency_sorted=eff_sorted,
+            micro_steps=n_steps, cell_entries=n_cells, f32_ops=f32,
+            f64_ops=f64, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        shapes[name] = dict(p=p, gain=gain, rays=rays, res=res,
+                            method=method, ms=ms, bound=(b_ms, b_by))
+    # the seeded chunk: 8 of a seeded call's 8 launches, the ASE call's 1
+    seed = shapes["seed_chunk"]
+    plain_ms = cuda_ms(lambda: trace_kernel.trace_batch_plain(
+        seed["rays"], seed["p"].N, seed["p"].euv_beam.dz, seed["gain"], 2,
+        0.5, False), 1)
+    record["trace_seed_chunk"]["plain_ms"] = plain_ms
+    print(f"trace seed_chunk plain twin: {plain_ms:.3f} ms", flush=True)
+    results["trace"] = dict(ms=seed["ms"], plain_ms=plain_ms,
+                            bound_ms=seed["bound"][0],
+                            bound_by=seed["bound"][1], library_ms=None)
+    return shapes
+
+
+def phase_amplify(results, cell):
+    """B3 on the seeded chunk traced by B1, its seed factors from the work
+    unit, against the twin (log-gain bitwise, spectrum within 1e-13
+    relative, flags identical), then with a negative and a NaN entry in
+    fv (both flag bits); both timed."""
+    from raytrace_tpu_torch.ops import amplify_kernel, cuda_lib
+    from raytrace_tpu_torch.testing import seed_factors
+
+    p, res = cell["p"], cell["res"]
+    B = res.ivl.shape[0]
+    f, fv = seed_factors(p, B, DEV)
+    gv = cell["gain"].gv[1:]
+    K, T = fv.shape[0], res.ivl.shape[1] * res.ivl.shape[2]
+    args = (f, fv, res.escaped, res.ivl, res.gvl, gv)
+    got, flags = amplify_kernel.amplify_gain(*args)
+    _, _, gl = amplify_kernel._launch(
+        cuda_lib.load_library(), *args,
+        torch.cuda.current_stream().cuda_stream, log_gain=True)
+    want, want_flags = amplify_kernel.amplify_gain_plain(*args)
+    gl_bitwise = torch.equal(gl, amplify_kernel.log_gain_plain(*args[3:]))
+    nz = want != 0
+    rel = ((got - want)[nz].abs() / want[nz].abs()).max().item()
+    if (not gl_bitwise or rel > 1e-13 or not torch.equal(got == 0, ~nz)
+            or not torch.equal(flags, want_flags)):
+        fail(f"amplify: log-gain bitwise {gl_bitwise}, spectrum max rel "
+             f"{rel}, flags equal {torch.equal(flags, want_flags)}")
+    fv_bad = fv.clone()
+    fv_bad[3], fv_bad[7] = -1.0, float("nan")
+    bad = (f, fv_bad) + args[2:]
+    _, flags_bad = amplify_kernel.amplify_gain(*bad)
+    _, want_bad = amplify_kernel.amplify_gain_plain(*bad)
+    both = [int(((flags_bad & bit) != 0).sum()) for bit in
+            (amplify_kernel.FLAG_NEG, amplify_kernel.FLAG_NAN)]
+    if not torch.equal(flags_bad, want_bad) or min(both) == 0:
+        fail(f"amplify: flags with a negative and a NaN fv entry: equal "
+             f"{torch.equal(flags_bad, want_bad)}, rays per bit {both}")
+    ms = cuda_ms(lambda: amplify_kernel.amplify_gain(*args), 20)
+    plain_ms = cuda_ms(lambda: amplify_kernel.amplify_gain_plain(*args), 5)
+    nbytes = (B * K * 8 + B * T * 8 + B * (8 + 1 + 1) + K * 8
+              + gv.numel() * 4)
+    b_ms, b_by = bound(nbytes, f64_ops=B * K * (2 * T + 3))
+    print(f"amplify seeded chunk B={B} K={K} T={T} cells={gv.shape[1]}: "
+          f"log-gain bitwise, max rel {rel:.3e}, flags identical (escaped "
+          f"{int(res.escaped.sum())}; with a negative and a NaN fv entry "
+          f"{both} rays per bit, identical); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by "
+          f"{b_by}, {b_ms / ms:.3f} of it reached", flush=True)
+    record["amplify_chunk"] = dict(B=B, K=K, max_rel=rel, ms=ms,
+                                   plain_ms=plain_ms, bytes=nbytes,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   flag_rays=both)
+    results["amplify"] = dict(max_abs_err=(got - want).abs().max().item(),
+                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None)
+    cell.update(Iv=got, flags=flags)
+
+
+def phase_deposit(results, shapes):
+    """B2 on seeded random bins at the image shapes (1e-12 relative), then
+    at the real bins of the seeded chunk (B1's exit rays, B3's spectra) and
+    of the ASE call (entry rays, the plain emissivity amplify), each timed
+    in turns with ``index_add_`` into a [C + 1, K] buffer whose last row
+    takes the trash bin, and with the twin."""
+    from raytrace_tpu_torch.models.problem import prepare_beam
+    from raytrace_tpu_torch.models.ray_tracer import _validate
+    from raytrace_tpu_torch.ops import (amplify_kernel, binning,
+                                        deposit_kernel, spectrum)
+
     rng = np.random.default_rng(0)
     dep_worst = 0.0
-    for name, B, K, C in (("ase", 399000, 52, 60 * 25),
-                          ("seed", 1 << 20, 82, 118 * 25)):
-        contrib = torch.as_tensor(rng.standard_normal((B, K)), device="cuda")
+    for name, B, K, C in RANDOM_BIN_SHAPES:
+        contrib = torch.as_tensor(rng.standard_normal((B, K)), device=DEV)
         bins = torch.as_tensor(rng.integers(0, C + 1, B).astype(np.int32),
-                               device="cuda")
+                               device=DEV)
         got = deposit_kernel.deposit(
-            torch.zeros((C, K), dtype=torch.float64, device="cuda"),
+            torch.zeros((C, K), dtype=torch.float64, device=DEV),
             contrib, bins)
         want = deposit_kernel.deposit_plain(
-            torch.zeros((C, K), dtype=torch.float64, device="cuda"),
+            torch.zeros((C, K), dtype=torch.float64, device=DEV),
             contrib, bins)
         e = ((got - want).abs().max() / want.abs().max()).item()
         if e > 1e-12:
             fail(f"deposit {name}: max rel {e}")
         dep_worst = max(dep_worst, (got - want).abs().max().item())
-        out = torch.zeros((C, K), dtype=torch.float64, device="cuda")
-        ms_d = cuda_ms(lambda: deposit_kernel.deposit(out, contrib, bins), 20)
-        plain_d = cuda_ms(
-            lambda: deposit_kernel.deposit_plain(out, contrib, bins), 20)
-        print(f"deposit {name} B={B} K={K} C={C}: max rel {e:.2e}; kernel "
-              f"{ms_d:.4f} ms, plain {plain_d:.4f} ms", flush=True)
-        record[f"deposit_{name}"] = dict(B=B, K=K, C=C, max_rel=e, ms=ms_d,
-                                         plain_ms=plain_d)
-        if name == "ase":
-            results["deposit"] = dict(ms=ms_d, plain_ms=plain_d)
-    results["deposit"]["max_abs_err"] = dep_worst
+        print(f"deposit random bins {name} B={B} K={K} C={C}: max rel "
+              f"{e:.2e}", flush=True)
 
-    phase_amplify(results)
-    phase_probe_kernel(results)
-
-
-def phase_amplify(results):
-    """B3 on one 2^20-ray chunk of the seeded shipped shape, its ivl/gvl
-    traced by B1, against the twin; both timed."""
-    from raytrace_tpu_torch.models.problem import prepare_gain
-    from raytrace_tpu_torch.ops import amplify_kernel, cuda_lib, trace_kernel
-    from raytrace_tpu_torch.testing import synthetic_problem
-
-    p = synthetic_problem(**SEED_SHAPE)
-    gain = prepare_gain(p.gain, "cuda")
-    res = trace_kernel.trace_batch(source_rays(p, 1 << 20), p.N,
-                                   p.euv_beam.dz, gain, 2, 0.5, False)
-    gv = gain.gv[1:]
-    B, K = res.ivl.shape[0], p.euv_beam.nv
-    rng = np.random.default_rng(1)
-    Iv0 = torch.as_tensor(rng.uniform(0.5, 1.5, (B, K)), device="cuda")
-    args = (Iv0, res.ivl, res.gvl, gv)
-    got = amplify_kernel.amplify_gain(*args)
-    _, gl = amplify_kernel._launch(cuda_lib.load_library(), *args,
-                                   torch.cuda.current_stream().cuda_stream,
-                                   log_gain=True)
-    want = amplify_kernel.amplify_gain_plain(*args)
-    gl_bitwise = torch.equal(gl, amplify_kernel.log_gain_plain(*args[1:]))
-    rel = ((got - want).abs() / want.abs()).max().item()
-    if not gl_bitwise or rel > 1e-13:
-        fail(f"amplify: log-gain bitwise {gl_bitwise}, spectrum max rel {rel}")
-    ms = cuda_ms(lambda: amplify_kernel.amplify_gain(*args), 20)
-    plain_ms = cuda_ms(lambda: amplify_kernel.amplify_gain_plain(*args), 5)
-    print(f"amplify seeded chunk B={B} K={K} cells={gv.shape[1]}: log-gain "
-          f"bitwise, max rel {rel:.3e}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
-    record["amplify_chunk"] = dict(B=B, K=K, max_rel=rel, ms=ms,
-                                   plain_ms=plain_ms)
-    results["amplify"] = dict(max_abs_err=(got - want).abs().max().item(),
-                              ms=ms, plain_ms=plain_ms)
+    for name in ("seed_chunk", "ase_call"):
+        cell = shapes[name]
+        p, res, rays, method = (cell[k] for k in ("p", "res", "rays",
+                                                  "method"))
+        beam = prepare_beam(p.euv_beam, DEV)
+        if method == 1:
+            K = p.euv_beam.nv
+            Iv = spectrum.amplify(res, torch.zeros(
+                (res.ivl.shape[0], K), dtype=torch.float64, device=DEV),
+                cell["gain"].gv[1:], p.N)
+            flags = amplify_kernel.iv_flags(Iv)
+        else:
+            Iv, flags = cell["Iv"], cell["flags"]
+        scale = _validate(p)[2]
+        bx, by, _, _ = binning.bin_coords(res, rays, beam, method)
+        i1 = binning.get_index(beam.x, beam.dx, bx)
+        i2 = binning.get_index(beam.y, beam.dy, by)
+        nx, ny = beam.x.shape[0], beam.y.shape[0]
+        C = nx * ny
+        ok = (i1 >= 0) & (i2 >= 0) & ~res.perp & (flags == 0)
+        bins = torch.where(ok, i1 + i2 * nx, C).to(torch.int32)
+        contrib = (Iv * scale).contiguous()
+        B, K = contrib.shape
+        out = torch.zeros((C, K), dtype=torch.float64, device=DEV)
+        lib_out = torch.zeros((C + 1, K), dtype=torch.float64, device=DEV)
+        deposit_kernel.deposit(out, contrib, bins)
+        lib_out.index_add_(0, bins, contrib)
+        e = ((out - lib_out[:C]).abs().max() / lib_out.abs().max()).item()
+        if e > 1e-12:
+            fail(f"deposit {name} real bins: B2 against index_add_ max rel "
+                 f"{e}")
+        t = in_turns({
+            "kernel": lambda: deposit_kernel.deposit(out, contrib, bins),
+            "library": lambda: lib_out.index_add_(0, bins, contrib)}, 20)
+        plain_ms = cuda_ms(
+            lambda: deposit_kernel.deposit_plain(out, contrib, bins), 10)
+        trash = int((bins == C).sum())
+        nbytes = (B - trash) * K * 8 + B * 4 + 2 * C * K * 8
+        b_ms, b_by = bound(nbytes, f64_ops=(B - trash) * K)
+        ms, lib_ms = mean(t["kernel"]), mean(t["library"])
+        print(f"deposit real bins {name} B={B} K={K} C={C}: trash share "
+              f"{trash / B:.4f}; B2 {t['kernel']} ms, index_add_ "
+              f"{t['library']} ms (B2/index_add_ {ms / lib_ms:.3f}), plain "
+              f"{plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by "
+              f"{b_by}, {b_ms / ms:.3f} of it reached", flush=True)
+        record[f"deposit_{name}"] = dict(
+            B=B, K=K, C=C, trash_share=trash / B, ms_readings=t["kernel"],
+            library_ms_readings=t["library"], ms=ms, library_ms=lib_ms,
+            plain_ms=plain_ms, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        if name == "seed_chunk":
+            results["deposit"] = dict(
+                max_abs_err=dep_worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def phase_probe_kernel(results):
     """P1 against its twin at K = 64, both timed there."""
     from raytrace_tpu_torch.tools import gather_probe
 
-    tab, idx = (t.cuda() for t in gather_probe.probe_inputs())
+    tab, idx = (t.to(DEV) for t in gather_probe.probe_inputs())
     K = 64
     got = gather_probe.gather_probe(tab, idx, K)
     want = gather_probe.gather_probe_plain(tab, idx, K)
@@ -298,11 +500,14 @@ def phase_probe_kernel(results):
     ms = cuda_ms(lambda: gather_probe.gather_probe(tab, idx, K), 20)
     plain_ms = cuda_ms(lambda: gather_probe.gather_probe_plain(tab, idx, K),
                        5)
+    # a latency probe: its bytes and adds bound nothing it measures
+    b_ms, b_by = bound(tab.numel() * 4 + idx.numel() * 4 + got.numel() * 4,
+                       f32_ops=K * tab.numel())
     print(f"gather probe K={K}: bitwise; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
+          f"{plain_ms:.4f} ms; bound {b_ms:.2e} ms by {b_by}", flush=True)
     results["gather_probe"] = dict(
         max_abs_err=(got - want).abs().max().item(), ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def check_output(image, i_ang, p):
@@ -317,7 +522,8 @@ def check_output(image, i_ang, p):
 
 def phase_main_path():
     from raytrace_tpu_torch import check_ans, create_image, load_input
-    from raytrace_tpu_torch.testing import synthetic_problem
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            synthetic_problem)
 
     for name in ("golden_ase.dat", "golden_seed.dat"):
         p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
@@ -342,17 +548,23 @@ def phase_main_path():
         warm = time.perf_counter() - t0
         times = []
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
+        for r in range(3):
+            before = {n: w.launch_count for n, w in WRAPPERS.items()}
             t0 = time.perf_counter()
             image, i_ang = create_image(p, "cuda", device="cuda")
             times.append(time.perf_counter() - t0)
+            if r == 0:
+                LAUNCHES_PER_CALL[name] = {
+                    n: w.launch_count - before[n]
+                    for n, w in WRAPPERS.items()}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         check_output(image, i_ang, p)
         best = min(times)
         print(f"{name} shipped shape ({rays} rays): warmup {warm:.4f} s, "
               f"s/call {[round(t, 5) for t in times]}, best {best:.5f} s, "
               f"{rays / best:.4e} rays/s, peak device memory "
-              f"{peak_gib:.3f} GiB", flush=True)
+              f"{peak_gib:.3f} GiB; launches per call "
+              f"{LAUNCHES_PER_CALL[name]}", flush=True)
         record[f"{name}_call"] = dict(rays=rays, warmup_s=warm,
                                       times_s=times, rays_per_s=rays / best,
                                       peak_gib=peak_gib)
@@ -364,7 +576,8 @@ def phase_stream():
     """create_image_stream over 4 distinct-table units of each shipped
     shape, without and with the reorder, against synchronous calls."""
     from raytrace_tpu_torch import create_image, create_image_stream
-    from raytrace_tpu_torch.testing import (perturbed_problems,
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            perturbed_problems,
                                             synthetic_problem)
 
     for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
@@ -418,7 +631,11 @@ def phase_plain(outs):
 
     for name, (p, image, i_ang) in outs.items():
         t0 = time.perf_counter()
-        image_p, i_ang_p = create_image(p, "cpu", device="cuda")
+        # the kernels' chunk size: 8 seeded chunks in place of the CPU
+        # default's 477 (the twins' launch count, not their arithmetic,
+        # set the time), the same result to rounding
+        image_p, i_ang_p = create_image(p, "cpu", device="cuda",
+                                        chunk_size=1 << 20)
         dt = time.perf_counter() - t0
         r_img, r_ang = rel_l2(image, image_p), rel_l2(i_ang, i_ang_p)
         if r_img >= 1e-5 or r_ang >= 1e-5:
@@ -429,6 +646,9 @@ def phase_plain(outs):
               flush=True)
         record[f"{name}_vs_plain"] = dict(rel_image=r_img, rel_iang=r_ang,
                                           plain_s=dt)
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -457,6 +677,7 @@ def main() -> int:
 
     wrappers = {"trace": trace_kernel, "deposit": deposit_kernel,
                 "amplify": amplify_kernel, "gather_probe": gather_probe}
+    WRAPPERS.update(wrappers)
 
     def run_path(what, phase, names):
         """Drive one path with every count at 0; each kernel of the path
@@ -481,25 +702,23 @@ def main() -> int:
 
     phase_plain(outs)
 
-    kernels = [
-        dict(name="trace", route="cuda",
-             source="raytrace_tpu_torch/csrc/trace.cu",
-             replaces="raytrace_tpu/ops/pallas_kernel.py:402",
-             launches=launches["trace"], **results["trace"]),
-        dict(name="deposit", route="cuda",
-             source="raytrace_tpu_torch/csrc/deposit.cu",
-             replaces="raytrace_tpu/ops/deposit_kernel.py:76",
-             launches=launches["deposit"], **results["deposit"]),
-        dict(name="amplify", route="cuda",
-             source="raytrace_tpu_torch/csrc/amplify.cu",
-             replaces="raytrace_tpu/ops/pallas_amplify.py:123",
-             launches=launches["amplify"], **results["amplify"]),
-        dict(name="gather_probe", route="cuda",
-             source="raytrace_tpu_torch/csrc/gather_probe.cu",
-             replaces="tools/vpu_probe.py:112",
-             launches=launches["gather_probe"], **results["gather_probe"]),
-    ]
+    kernels = []
+    for name, src, replaces in (
+            ("trace", "trace.cu", "raytrace_tpu/ops/pallas_kernel.py:402"),
+            ("deposit", "deposit.cu", "raytrace_tpu/ops/deposit_kernel.py:76"),
+            ("amplify", "amplify.cu",
+             "raytrace_tpu/ops/pallas_amplify.py:123"),
+            ("gather_probe", "gather_probe.cu", "tools/vpu_probe.py:112")):
+        kernels.append(dict(
+            name=name, route="cuda", source="raytrace_tpu_torch/csrc/" + src,
+            replaces=replaces, launches=launches[name], **results[name],
+            launches_per_call={
+                "seeded": LAUNCHES_PER_CALL["seed"][name],
+                "ase": LAUNCHES_PER_CALL["ase"][name]}))
     record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - T_START
+    print(f"chip_smoke: every phase passed in {record['seconds']:.1f} s",
+          flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,9 +1,14 @@
-// Amplify kernel (B3): the gain-only amplification of the seeded path,
+// Amplify kernel (B3): the seeded path's gain-only amplification with the
+// entry seed and the failure flags fused in,
 //
-//   Iv[b, k] = Iv0[b, k] * exp(sum_t gvl[b, t] * gv[seg(t)][ivl[b, t], k])
+//   Iv[b, k] = (escaped[b] ? 0 : f[b] * fv[k])
+//              * exp(sum_t gvl[b, t] * gv[seg(t)][ivl[b, t], k])
+//   flags[b] = bit 0 if any Iv[b, :] < 0, bit 1 if any Iv[b, :] is NaN
 //
 // in f64, with t running over (segment, sub-length) pairs, sub-lengths
-// fastest, and seg(t) = t / nsub.
+// fastest. f[b] is the ray's separable seed factor f0 fx fy fa fb (clamped
+// at 0) and fv the frequency profile, so the entry spectrum Iv0 = f fv is an
+// outer product that is never stored.
 //
 // Replaces the Pallas TPU kernel raytrace_tpu/ops/pallas_amplify.py
 // (_loggain_kernel, launched by log_gain_fused) together with the Iv0 * exp
@@ -16,15 +21,29 @@
 // amplify_gain_plain) and of the reference (RayTraceImageHelper.h:569-581).
 // The TPU's table packing (pack_gv) has no counterpart.
 //
-// Layout: one thread per (ray, frequency) element, frequency fastest, so a
-// warp reads consecutive entries of one gv row and the rows of the two or
-// three rays it spans; the K threads of a ray read the same ivl/gvl words
-// (one L1 line). The tables (~0.9 MB a segment at the shipped widths) stay
-// in L2 and are read through the read-only cache.
+// What bounds it on an H100: device-memory bytes. Per element it writes the
+// 8-byte spectrum; per ray it reads T cell ids and path gains (8 T bytes),
+// the seed factor and the escape flag, and writes one flag byte. For a
+// 2^20-ray chunk at K 82 and T 6 that is about 0.74 GB, 0.221 ms at
+// 3.35 TB/s. The row gathers (T per element) come from L2 and L1: the
+// tables are 0.9 MB a segment at the shipped widths.
 //
-// What bounds it: device-memory traffic, 16 bytes per element for Iv0 in and
-// Iv out; the row gathers hit L2. The arithmetic is 2 f64 operations per
-// term and one exp per element.
+// Design:
+// * a block covers a tile of rays (threadIdx.y) with one thread per V
+//   consecutive frequencies (threadIdx.x): no integer division per element;
+//   V = 2 where K is even, so the rows are read as float2 and the spectrum
+//   written as double2;
+// * the (segment, sub-length) loops are unrolled for the shipped 2 x 3
+//   (template), with a generic instantiation for the rest, so the T row
+//   gathers of a thread are independent loads in flight together;
+// * the spectrum is written with streaming stores (__stcs), so it does not
+//   push the tables out of L2;
+// * the seed product and the escape mask are formed in registers (the same
+//   values and rounding as the twin's f * fv, then where(escaped, 0, .));
+// * the failure flags are one byte per ray, zeroed by the C entry and set
+//   with an atomicOr on the byte's 32-bit word only where a bad value occurs
+//   (never on a healthy call). They replace the [B, K] any(Iv < 0) and
+//   any(Iv != Iv) passes of the failure codes.
 //
 // Compiled with -fmad=false: each f64 product and sum rounds on its own, as
 // the twin's separate PyTorch operations do, so the log-gain equals the
@@ -35,45 +54,122 @@
 
 namespace {
 
-__global__ void amplify_gain_kernel(const double* __restrict__ Iv0,
-                                    const int32_t* __restrict__ ivl,
-                                    const float* __restrict__ gvl,
-                                    const float* __restrict__ gv, int64_t B,
-                                    int T, int nsub, int cells, int K,
-                                    double* __restrict__ Iv,
-                                    double* __restrict__ log_gain) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B * K) return;
-  const int64_t b = e / K;
-  const int k = (int)(e - b * K);
+constexpr int kThreads = 256;
+
+// NSEG, NSUB > 0: the loop bounds at compile time; 0: nseg, nsub at run time.
+template <int NSEG, int NSUB, int V>
+__global__ void __launch_bounds__(kThreads)
+amplify_seeded_kernel(const double* __restrict__ f,
+                      const double* __restrict__ fv,
+                      const uint8_t* __restrict__ escaped,
+                      const int32_t* __restrict__ ivl,
+                      const float* __restrict__ gvl,
+                      const float* __restrict__ gv, int64_t B, int nseg_rt,
+                      int nsub_rt, int cells, int K, double* __restrict__ Iv,
+                      uint8_t* __restrict__ flags,
+                      double* __restrict__ log_gain) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
+  if (b >= B) return;
+  const int k = (int)threadIdx.x * V;
+  const int nseg = NSEG > 0 ? NSEG : nseg_rt;
+  const int nsub = NSUB > 0 ? NSUB : nsub_rt;
+  const int64_t T = (int64_t)nseg * nsub;
   const int32_t* ivl_b = ivl + b * T;
   const float* gvl_b = gvl + b * T;
-  double acc = 0.0;
-  for (int t = 0; t < T; ++t) {
-    const int64_t seg = t / nsub;
-    const int64_t cell = __ldg(ivl_b + t);
-    const float row = __ldg(gv + (seg * cells + cell) * K + k);
-    acc = acc + (double)__ldg(gvl_b + t) * (double)row;
+
+  double acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.0;
+#pragma unroll
+  for (int s = 0; s < (NSEG > 0 ? NSEG : nseg); ++s) {
+    const float* gv_s = gv + (int64_t)s * cells * K + k;
+#pragma unroll
+    for (int u = 0; u < (NSUB > 0 ? NSUB : nsub); ++u) {
+      const int t = s * nsub + u;
+      const float* row = gv_s + (int64_t)__ldg(ivl_b + t) * K;
+      const double g = (double)__ldg(gvl_b + t);
+      if constexpr (V == 2) {
+        const float2 r = __ldg(reinterpret_cast<const float2*>(row));
+        acc[0] = acc[0] + g * (double)r.x;
+        acc[1] = acc[1] + g * (double)r.y;
+      } else {
+        acc[0] = acc[0] + g * (double)__ldg(row);
+      }
+    }
   }
-  if (log_gain != nullptr) log_gain[e] = acc;
-  Iv[e] = Iv0[e] * exp(acc);
+
+  const bool esc = __ldg(escaped + b) != 0;
+  const double fb = __ldg(f + b);
+  double out[V];
+  unsigned bits = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const double iv0 = esc ? 0.0 : fb * __ldg(fv + k + v);
+    out[v] = iv0 * exp(acc[v]);
+    bits |= out[v] < 0.0 ? 1u : 0u;
+    bits |= out[v] != out[v] ? 2u : 0u;
+  }
+  double* dst = Iv + b * K + k;
+  if constexpr (V == 2) {
+    __stcs(reinterpret_cast<double2*>(dst), make_double2(out[0], out[1]));
+  } else {
+    __stcs(dst, out[0]);
+  }
+  if (log_gain != nullptr) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) log_gain[b * K + k + v] = acc[v];
+  }
+  if (bits != 0) {
+    // the flag byte of ray b inside its aligned 32-bit word (little-endian)
+    unsigned* word = reinterpret_cast<unsigned*>(flags + (b & ~(int64_t)3));
+    atomicOr(word, bits << (8 * (unsigned)(b & 3)));
+  }
+}
+
+template <int NSEG, int NSUB, int V>
+void launch(const double* f, const double* fv, const uint8_t* escaped,
+            const int32_t* ivl, const float* gvl, const float* gv, int64_t B,
+            int nseg, int nsub, int cells, int K, double* Iv, uint8_t* flags,
+            double* log_gain, cudaStream_t stream) {
+  const dim3 threads(K / V, kThreads / (K / V));
+  const int64_t blocks = (B + threads.y - 1) / threads.y;
+  amplify_seeded_kernel<NSEG, NSUB, V>
+      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K, Iv, flags,
+          log_gain);
 }
 
 }  // namespace
 
 // C entry bound with ctypes by raytrace_tpu_torch/ops/amplify_kernel.py.
-// Writes Iv [B, K] (and the log-gain, where `log_gain` is not null) on
-// `stream`, does not synchronise, and returns cudaGetLastError() of the
-// launch.
-extern "C" int rt_amplify_gain(const double* Iv0, const int32_t* ivl,
-                               const float* gvl, const float* gv, int64_t B,
-                               int T, int nsub, int cells, int K, double* Iv,
-                               double* log_gain, void* stream) {
-  const int threads = 256;
-  const int64_t blocks = (B * K + threads - 1) / threads;
-  if (blocks > 0) {
-    amplify_gain_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        Iv0, ivl, gvl, gv, B, T, nsub, cells, K, Iv, log_gain);
+// Writes Iv [B, K], the flag bytes (`flags` holds B rounded up to a multiple
+// of 4 bytes, 4-byte aligned) and, where `log_gain` is not null, the
+// log-gain, on `stream`; does not synchronise; returns cudaGetLastError().
+// `pairs` (K even, gv 8-byte aligned) selects the float2/double2 layout.
+// K must be at most 256.
+extern "C" int rt_amplify_seeded(const double* f, const double* fv,
+                                 const uint8_t* escaped, const int32_t* ivl,
+                                 const float* gvl, const float* gv, int64_t B,
+                                 int nseg, int nsub, int cells, int K,
+                                 int pairs, double* Iv, uint8_t* flags,
+                                 double* log_gain, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(flags, 0, (size_t)((B + 3) & ~(int64_t)3), s);
+  if (B > 0 && K > 0) {
+    const bool shipped = nseg == 2 && nsub == 3;
+    if (pairs && shipped) {
+      launch<2, 3, 2>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K,
+                      Iv, flags, log_gain, s);
+    } else if (pairs) {
+      launch<0, 0, 2>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K,
+                      Iv, flags, log_gain, s);
+    } else if (shipped) {
+      launch<2, 3, 1>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K,
+                      Iv, flags, log_gain, s);
+    } else {
+      launch<0, 0, 1>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K,
+                      Iv, flags, log_gain, s);
+    }
   }
   return (int)cudaGetLastError();
 }

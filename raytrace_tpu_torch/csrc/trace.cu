@@ -13,19 +13,52 @@
 // thread gathers freely, so this kernel keeps the reference's scalar loop
 // nest per thread and reads the gain tables straight from global memory
 // through the read-only cache: the shipped tables are ~60 KB per segment
-// and stay resident in L1/L2. The index search is the reference's f64
-// bisection (findindex) on the segment's own grid, so uniform and
-// non-uniform grids take one path.
+// and stay resident in L1/L2.
 //
-// What bounds it: dependent f32 arithmetic of the micro-step loop
-// (latency) and divergence between the rays of a warp, whose trip counts
-// differ. No shared memory; one ray's state lives in registers.
+// What bounds it on an H100: operations, and the latency of dependent ones.
+// Its bytes are small (rays in, ~26 bytes per ray and sub-length out: about
+// 0.03 ms at 3.35 TB/s for a 2^20-ray chunk). Its operations depend on the
+// data. Counted from this source: per micro-step of propagate (the `steps`
+// count) 81 f32 operations, 11 of them IEEE divisions and one a square
+// root; per cell entry (the `cells` count) 28 f64 operations and 36 f32
+// (48 with emissivity), the interval searches included; the per-call set-up
+// of propagate is left out. chip_smoke.py turns this run's counts into a
+// bound against 67 TFLOP/s f32 and 34 TFLOP/s f64 (B1_OPS there).
+// Every step depends on the one before it, so what the card reaches is set
+// by how many warps are resident to hide that latency and by divergence
+// between the rays of a warp, whose trip counts differ.
+//
+// What the design does about it:
+// * Persistent threads that refill idle lanes: as many blocks as stay
+//   resident, each lane taking the next ray from a counter (one atomicAdd
+//   per warp) when its ray ends. Per-ray outputs do not depend on which
+//   thread traced the ray. The rays' micro-step counts fill a warp to
+//   E = 0.82 (seeded chunk) and 0.75 (ASE call) of 32 x its longest ray in
+//   launch order, so without refilling a quarter of the lanes would idle
+//   while their warp's longest ray runs. The counters live in two scratch
+//   words the wrapper keeps per stream; the launch's last thread to retire
+//   zeroes them again, so a trace costs one launch and no memset.
+// * __launch_bounds__(128, 5) caps the registers at 96, so 5 blocks (20
+//   warps) stay resident per SM, without spills (chip_smoke.py prints the
+//   build's registers and spills).
+// * find_index guesses the interval from the segment's end points and
+//   loads the guess and its neighbour: on the shipped uniform grids those
+//   two loads find it, where the reference's bisection takes 7 + 5
+//   dependent f64 loads per cell entry. Where the guess misses (a warped
+//   grid) it bisects the side of the grid the two loads leave, at most two
+//   loads more than the bisection. It returns the bisection's index on
+//   every nondecreasing grid (the first i in [1, n-1] with X[i] >= y, or
+//   n-1), NaN and the infinities included, so every output stays bitwise.
+// No shared memory; one ray's state lives in registers. The 40-byte stack
+// frame is the f64 tan/atan's argument reduction.
 //
 // Counts variant: with a non-null `steps` output the kernel also writes each
 // ray's number of propagate micro-steps over the whole trace (one per
 // iteration of propagate's loop), the per-lane count the Pallas kernel keeps
 // with counts=True (pallas_kernel.py:757-758) and the cost-feedback reorder
-// sorts by. The count lives in a register; a null pointer writes nothing.
+// sorts by. With a non-null `cells` output it writes each ray's number of
+// cell entries (the census of the operation bound). The counts live in
+// registers; a null pointer writes nothing.
 //
 // Precision placement (the spec, held against the JAX package by
 // tests/test_torch_trace.py): x/y grids and the cell-edge fractions in
@@ -41,6 +74,11 @@
 namespace {
 
 constexpr int kNSub = 3;
+// Launch bounds: threads per block and the blocks per SM they must fit,
+// which caps the registers at 65536 / (128 x 5) = 96: the fastest build
+// without spills.
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 5;
 // Same cap as stepper.MAX_CELL_STEPS: only a non-finite ray state reaches it.
 constexpr int kMaxCellSteps = 1 << 16;
 
@@ -84,15 +122,70 @@ __device__ __forceinline__ float bilinear(float dx, float dy, float f1,
   return (dx * f2 + dx2 * f1) * dy2 + (dx * f4 + dx2 * f3) * dy;
 }
 
+// One segment's f64 grid axis for find_index: its true size and end points,
+// and the scale that maps y - lo onto an interval guess.
+struct Axis {
+  const double* X;
+  int n;
+  double lo, hi;
+  float scale;  // (n - 1) / (hi - lo) in f32, 0 when that span is 0
+};
+
+__device__ __forceinline__ Axis make_axis(const double* X, int n) {
+  Axis a;
+  a.X = X;
+  a.n = n;
+  a.lo = __ldg(X);
+  a.hi = __ldg(X + n - 1);
+  const float span = (float)(a.hi - a.lo);
+  a.scale = span > 0.0f ? (float)(n - 1) / span : 0.0f;
+  return a;
+}
+
 // findindex (RayTraceImageHelper.h:131-143): the first i in [1, n-1] with
-// X[i] >= y, or n-1.
-__device__ __forceinline__ int find_index(const double* X, int n, double y) {
-  int lower = 0, upper = n - 1;
-  while (upper - lower != 1) {
-    int mid = (upper + lower) >> 1;
-    if (X[mid] >= y) upper = mid; else lower = mid;
+// X[i] >= y, or n-1 -- what the reference's bisection returns on a
+// nondecreasing grid, NaN (n-1) and the infinities included. The interval
+// is guessed from the end points; the guess and its neighbour bracket the
+// answer as X[lo] < y <= X[hi] on a uniform grid, and a bisection narrows
+// whatever bracket they leave. The guess only decides where the search
+// starts.
+__device__ __forceinline__ int find_index(const Axis& a, double y) {
+  if (!(y <= a.hi)) return a.n - 1;  // y > X[n-1], or NaN
+  if (y <= a.lo) return 1;           // X[1] >= X[0] >= y; also -inf
+  // here X[0] < y <= X[n-1]; a guess that is not below n-1 (an infinite
+  // or NaN one included) starts the search at n-1
+  const float guess = (float)(y - a.lo) * a.scale;
+  const int i = guess < (float)(a.n - 1) ? (guess > 0.0f ? (int)guess : 0)
+                                         : a.n - 1;
+  int lo = 0, hi = a.n - 1;
+  if (__ldg(a.X + i) >= y) {  // the answer is i or below (i >= 1)
+    hi = i;
+    if (hi - 1 > lo) {
+      if (__ldg(a.X + hi - 1) < y) {
+        lo = hi - 1;
+      } else {
+        hi = hi - 1;
+      }
+    }
+  } else {  // the answer is above i
+    lo = i;
+    if (lo + 1 < hi) {
+      if (__ldg(a.X + lo + 1) >= y) {
+        hi = lo + 1;
+      } else {
+        lo = lo + 1;
+      }
+    }
   }
-  return upper;
+  while (hi - lo > 1) {
+    const int m = (lo + hi) >> 1;
+    if (__ldg(a.X + m) >= y) {
+      hi = m;
+    } else {
+      lo = m;
+    }
+  }
+  return hi;
 }
 
 struct Ray {
@@ -101,7 +194,7 @@ struct Ray {
 
 // propagate (RayTraceImageHelper.h:270-313) in the plain twin's operation
 // order. Returns the displacement, the new direction and the path length.
-__device__ void propagate(float c, float n0, float dndx, float dndy,
+__device__ __forceinline__ void propagate(float c, float n0, float dndx, float dndy,
                           float box0, float box1, float box2, float& sx,
                           float& sy, float& sz, float& rx, float& ry,
                           float& rz, float& path, int& nst) {
@@ -146,10 +239,12 @@ __device__ void propagate(float c, float n0, float dndx, float dndy,
 }
 
 // One (segment, sub-length) cell walk (RayTraceImageHelper.h:460-512).
-__device__ void cell_walk(const GainTables& g, int seg, float z_stop,
-                          float c, bool use_emis, Ray& ray, bool& escaped,
-                          float& z, float& gvl, float& evl, int& ivl,
-                          int& nst) {
+__device__ __forceinline__ void cell_walk(const GainTables& g, int seg,
+                                          float z_stop, float c,
+                                          bool use_emis, Ray& ray,
+                                          bool& escaped, float& z, float& gvl,
+                                          float& evl, int& ivl, int& nst,
+                                          int& ncell) {
   const int nx_pad = g.nx_pad, ny_pad = g.ny_pad;
   const double* xg = g.x + (size_t)seg * nx_pad;
   const double* yg = g.y + (size_t)seg * ny_pad;
@@ -164,7 +259,7 @@ __device__ void cell_walk(const GainTables& g, int seg, float z_stop,
   const float r0 = g.range4[4 * seg + 0], r1 = g.range4[4 * seg + 1];
   const float r2 = g.range4[4 * seg + 2], r3 = g.range4[4 * seg + 3];
   const bool absy = g.absy[seg] != 0;
-  const int nx_true = g.nx[seg], ny_true = g.ny[seg];
+  const Axis ax = make_axis(xg, g.nx[seg]), ay = make_axis(yg, g.ny[seg]);
   const float z_stop995 = 0.995f * z_stop;
 
   gvl = 0.0f;
@@ -177,10 +272,11 @@ __device__ void cell_walk(const GainTables& g, int seg, float z_stop,
                    (ray.py > r3) || (ray.sz * ray.sz < 0.01f);
     escaped = escaped || esc_now;
     if (!esc_now) {
-      // cell entry: f64 bisection + corner fetches
+      // cell entry: f64 interval search + corner fetches
+      ++ncell;
       const float y_eff = absy ? fabsf(ray.py) : ray.py;
-      const int k1 = find_index(xg, nx_true, (double)ray.px);
-      const int k2 = find_index(yg, ny_true, (double)y_eff);
+      const int k1 = find_index(ax, (double)ray.px);
+      const int k2 = find_index(ay, (double)y_eff);
       const int i1 = (k1 - 1) + (k2 - 1) * nx_pad;
       const int i2 = k1 + (k2 - 1) * nx_pad;
       const int i3 = (k1 - 1) + k2 * nx_pad;
@@ -252,18 +348,45 @@ __device__ void cell_walk(const GainTables& g, int seg, float z_stop,
   }
 }
 
-__global__ void trace_kernel(const float* __restrict__ ray_x,
-                             const float* __restrict__ ray_y,
-                             const float* __restrict__ ray_a,
-                             const float* __restrict__ ray_b, int64_t B,
-                             GainTables g, int N, float dz0, float c,
-                             int method, int use_emis, float* gvl_out,
-                             float* evl_out, int32_t* ivl_out, float* exit_x,
-                             float* exit_y, float* exit_a, float* exit_b,
-                             uint8_t* escaped_out, uint8_t* perp_out,
-                             int32_t* steps_out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// Everything one launch reads and writes.
+struct TraceArgs {
+  const float* ray_x;
+  const float* ray_y;
+  const float* ray_a;
+  const float* ray_b;
+  int64_t B;
+  GainTables g;
+  int N;
+  float dz0, c;
+  int method, use_emis;
+  float* gvl_out;
+  float* evl_out;
+  int32_t* ivl_out;
+  float* exit_x;
+  float* exit_y;
+  float* exit_a;
+  float* exit_b;
+  uint8_t* escaped_out;
+  uint8_t* perp_out;
+  int32_t* steps_out;  // may be null
+  int32_t* cells_out;  // may be null
+  unsigned long long* ctr;  // the refill's two counters, zero at launch
+};
+
+// Trace ray b through every segment and write its outputs.
+__device__ __forceinline__ void trace_ray(const TraceArgs& A, int64_t b) {
+  const GainTables& g = A.g;
+  const int N = A.N, method = A.method;
+  const float dz0 = A.dz0, c = A.c;
+  const int use_emis = A.use_emis;
+  const float *ray_x = A.ray_x, *ray_y = A.ray_y, *ray_a = A.ray_a,
+              *ray_b = A.ray_b;
+  float *gvl_out = A.gvl_out, *evl_out = A.evl_out;
+  int32_t* ivl_out = A.ivl_out;
+  float *exit_x = A.exit_x, *exit_y = A.exit_y, *exit_a = A.exit_a,
+        *exit_b = A.exit_b;
+  uint8_t *escaped_out = A.escaped_out, *perp_out = A.perp_out;
+  int32_t *steps_out = A.steps_out, *cells_out = A.cells_out;
   const int nseg = N - 1;
 
   // direction from angles (RayTraceImageHelper.h:404-418): tan in f64
@@ -281,7 +404,7 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
   normalize(ray.sx, ray.sy, ray.sz);
 
   bool escaped = false;
-  int nst = 0;
+  int nst = 0, ncell = 0;
   for (int i = 0; i < nseg; ++i) {
     // high-energy-side segment indexing (RayTraceImageHelper.h:430-441)
     const int ii = method == 1 ? N - i - 1 : i + 1;
@@ -292,7 +415,7 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
       float gvl, evl;
       int ivl;
       cell_walk(g, ii, z_stop, c, use_emis != 0, ray, escaped, z, gvl, evl,
-                ivl, nst);
+                ivl, nst, ncell);
       const int64_t o = (b * nseg + (ii - 1)) * kNSub + isub;
       gvl_out[o] = gvl;
       evl_out[o] = evl;
@@ -308,13 +431,80 @@ __global__ void trace_kernel(const float* __restrict__ ray_x,
   escaped_out[b] = escaped ? 1 : 0;
   perp_out[b] = (ray.sz * ray.sz < 0.01f) ? 1 : 0;
   if (steps_out != nullptr) steps_out[b] = nst;
+  if (cells_out != nullptr) cells_out[b] = ncell;
+}
+
+// The next ray of a refilling thread: one atomicAdd per warp for the lanes
+// that ask together, each lane taking its rank among them. ctr[0] is the
+// next ray to hand out, ctr[1] the threads that have retired (been handed
+// an index past the last ray); the leader retires its warp's lanes, and
+// the launch's last thread to retire zeroes both for the next launch.
+__device__ __forceinline__ int64_t next_ray(unsigned long long* ctr,
+                                            int64_t B) {
+  const unsigned mask = __activemask();
+  const unsigned lane = threadIdx.x % warpSize;
+  const unsigned leader = __ffs(mask) - 1;
+  const unsigned long long n = __popc(mask);
+  unsigned long long base = 0;
+  if (lane == leader) {
+    base = atomicAdd(ctr, n);
+    const unsigned long long last = (unsigned long long)B;
+    if (base + n > last) {
+      const unsigned long long out = base + n - (base > last ? base : last);
+      const unsigned long long threads =
+          (unsigned long long)gridDim.x * blockDim.x;
+      if (atomicAdd(ctr + 1, out) + out == threads) {
+        ctr[0] = 0;
+        ctr[1] = 0;
+      }
+    }
+  }
+  base = __shfl_sync(mask, base, leader);
+  return (int64_t)(base + __popc(mask & ((1u << lane) - 1u)));
+}
+
+// Persistent threads: a lane whose ray has ended takes the next one, so a
+// warp's lanes stay busy while its longest ray runs and no block waits for
+// its slowest warp.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+trace_kernel(TraceArgs A) {
+  for (;;) {
+    const int64_t b = next_ray(A.ctr, A.B);
+    if (b >= A.B) return;
+    trace_ray(A, b);
+  }
+}
+
+// Blocks of trace_kernel resident at once on device `dev`, queried once.
+int resident_blocks(int dev) {
+  static int cache[64] = {0};
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cache[dev] == 0) {
+    int sms = 1, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_kernel,
+                                                  kThreads, 0);
+    cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return cache[dev];
+}
+
+__global__ void find_index_kernel(const double* __restrict__ X, int n,
+                                  const double* __restrict__ y, int64_t m,
+                                  int32_t* __restrict__ out) {
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= m) return;
+  const Axis a = make_axis(X, n);
+  out[q] = find_index(a, y[q]);
 }
 
 }  // namespace
 
 // C entry bound with ctypes by raytrace_tpu_torch/ops/trace_kernel.py.
-// `steps` may be null (no counts). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() of the launch.
+// `steps` and `cells` may be null (no counts, no census); `ctr` is two
+// 8-byte words of scratch, zero before the launch and zero again after it
+// (the refill's counters; one pair per stream). Launches on `stream`, does
+// not synchronise, and returns cudaGetLastError() of the launch.
 extern "C" int rt_trace(const float* ray_x, const float* ray_y,
                         const float* ray_a, const float* ray_b, int64_t B,
                         const double* gx, const double* gy, const float* cdx,
@@ -326,13 +516,34 @@ extern "C" int rt_trace(const float* ray_x, const float* ray_y,
                         int use_emis, float* gvl, float* evl, int32_t* ivl,
                         float* exit_x, float* exit_y, float* exit_a,
                         float* exit_b, uint8_t* escaped, uint8_t* perp,
-                        int32_t* steps, void* stream) {
+                        int32_t* steps, int32_t* cells,
+                        unsigned long long* ctr, void* stream) {
   GainTables g{gx, gy, cdx, cdy, n4, g0, E0, Gx, Gy, range4, absy, nx, ny,
                nx_pad, ny_pad};
-  const int threads = 128;
-  const int64_t blocks = (B + threads - 1) / threads;
-  trace_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      ray_x, ray_y, ray_a, ray_b, B, g, N, dz0, c, method, use_emis, gvl, evl,
-      ivl, exit_x, exit_y, exit_a, exit_b, escaped, perp, steps);
+  TraceArgs A{ray_x, ray_y, ray_a, ray_b, B, g, N, dz0, c, method,
+              use_emis, gvl, evl, ivl, exit_x, exit_y, exit_a, exit_b,
+              escaped, perp, steps, cells, ctr};
+  // as many blocks as stay resident at once, fewer for a small batch
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int64_t resident = resident_blocks(dev);
+  int64_t blocks = (B + kThreads - 1) / kThreads;
+  blocks = blocks < resident ? blocks : resident;
+  if (blocks > 0) {
+    trace_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(A);
+  }
+  return (int)cudaGetLastError();
+}
+
+// find_index over m queries on one grid X[0..n-1] (n >= 2), for the tests
+// that hold it against the bisection and searchsorted.
+extern "C" int rt_find_index(const double* X, int n, const double* y,
+                             int64_t m, int32_t* out, void* stream) {
+  const int threads = 256;
+  const int64_t blocks = (m + threads - 1) / threads;
+  if (blocks > 0) {
+    find_index_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        X, n, y, m, out);
+  }
   return (int)cudaGetLastError();
 }

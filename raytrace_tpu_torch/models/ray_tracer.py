@@ -7,8 +7,9 @@ PyTorch, following ``raytrace_tpu.models.ray_tracer``:
 * limits and uniform euv/seed grid checks (RayTraceImage.cpp:229-264);
 * method 1 (backward, ASE) or 2 (forward, seeded), scale and ray dims;
 * the N_start/N_parallel stride contract (RayTraceImage.cpp:300-328);
-* per chunk: entry rays -> trace -> entry seed -> f64 amplify -> deposit
-  into the call's f64 image and I_ang accumulators;
+* per chunk: entry rays -> trace -> f64 amplify (seeded: the per-ray seed
+  factor into kernel B3, which forms the entry spectrum and flags bad
+  spectra) -> deposit into the call's f64 image and I_ang accumulators;
 * per-ray failure codes -1/-2/-3 -> bitmask on the device -> (only when a
   bit is set) the codes, failed-ray dump and abort (RayTraceImage.cpp:
   427-430).
@@ -436,10 +437,13 @@ def _dispatch(problem, name, dev, chunk_size, c, streams=None,
     gv = gain.gv[1:]
     dbeam = beam_from_tensors(part("beam."), beam)
     grids = [t[f"grid.{axis}"] for axis in "xyab"]
+    f64 = dict(dtype=torch.float64, device=dev)
     entry_seed = None
+    fv = torch.ones(K, **f64)
     if problem.seed is not None:
         entry_seed = seed_ops.make_entry_seed_tables(
             seed_from_tensors(part("seed."), problem.seed), grids, K)
+        fv = entry_seed.fv
 
     Nt = dims[0] * dims[1] * dims[2] * dims[3]
     skip = problem.N_parallel
@@ -480,16 +484,18 @@ def _dispatch(problem, name, dev, chunk_size, c, streams=None,
                              counts=True)
             # back to natural order: the next call's sort key
             counts.narrow(0, start, n).index_copy_(0, perm, cnt)
-        if entry_seed is None:
-            Iv0 = torch.zeros((n, K), dtype=torch.float64, device=dev)
+        if use_emis:
+            Iv = spectrum.amplify(res, torch.zeros((n, K), **f64), gv, N)
+            flags = amplify_kernel.iv_flags(Iv)
         else:
-            Iv0 = seed_ops.calc_seed_entry(entry_seed, i, j, k, m, K)
-            Iv0 = torch.where(res.escaped[:, None], 0.0, Iv0)
-        Iv = spectrum.amplify(res, Iv0, gv, N, use_emis, gain_only)
-        neg = torch.any(Iv < 0.0, dim=1)
-        nan = torch.any(Iv != Iv, dim=1)
+            # the entry seed in factor form; B3 forms f * fv, masks the
+            # escaped rays and flags the bad spectra
+            f = (torch.zeros(n, **f64) if entry_seed is None else
+                 seed_ops.seed_factor(entry_seed, i, j, k, m))
+            Iv, flags = gain_only(f, fv, res.escaped, res.ivl, res.gvl, gv)
         code = torch.where(res.perp, -1, torch.where(
-            neg, -2, torch.where(nan, -3, 0)))
+            (flags & amplify_kernel.FLAG_NEG) != 0, -2,
+            torch.where((flags & amplify_kernel.FLAG_NAN) != 0, -3, 0)))
         code = torch.where(valid, code, 0).to(torch.int8)
         binning.bin_images(Iv, res, rays, dbeam, method, scale,
                            valid & (code == 0), image, i_ang, deposit)

@@ -1,4 +1,4 @@
-"""Gain-only amplify wrapper: kernel B3 (``csrc/amplify.cu``) and its plain
+"""Seeded amplify wrapper: kernel B3 (``csrc/amplify.cu``) and its plain
 twin.
 
 Counterpart of the Pallas TPU kernel
@@ -10,7 +10,12 @@ Counterpart of the Pallas TPU kernel
     Iv[b, k] = Iv0[b, k] * exp(sum over (seg, sub) of
                                gvl[b, seg, sub] * gv[seg][ivl[b, seg, sub], k])
 
-with the log-gain summed in f64, segments outer and sub-lengths inner.
+with the log-gain summed in f64, segments outer and sub-lengths inner. The
+entry spectrum is the separable seed ``Iv0[b, k] = f[b] * fv[k]``, zero for
+a ray that escaped (``ops/seed.py``); it is formed inside the kernel and
+never stored. Beside ``Iv`` the kernel returns one flag byte per ray (bit 0:
+some ``Iv[b, k] < 0``, bit 1: some ``Iv[b, k]`` is NaN), from which the
+call builds the failure codes -2 and -3.
 
 The TPU kernel carries the sum as a two-float f32 pair and fetches the rows
 through a one-hot matmul over a bf16 triple of the tables
@@ -30,7 +35,13 @@ import torch
 from raytrace_tpu_torch.ops import cuda_lib
 
 __all__ = ["amplify_gain", "amplify_gain_plain", "log_gain_plain",
-           "launch_count"]
+           "iv_flags", "FLAG_NEG", "FLAG_NAN", "launch_count"]
+
+#: flag bits per ray: some Iv < 0 (failure code -2), some Iv NaN (code -3)
+FLAG_NEG, FLAG_NAN = 1, 2
+
+#: the kernel's widest spectrum (one thread per frequency or pair)
+_K_MAX = 256
 
 #: kernel launches since import (or since a caller last reset it)
 launch_count = 0
@@ -51,23 +62,35 @@ def log_gain_plain(ivl: torch.Tensor, gvl: torch.Tensor,
     return gl
 
 
-def amplify_gain_plain(Iv0: torch.Tensor, ivl: torch.Tensor,
-                       gvl: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
-    """Plain twin of kernel B3: ``Iv0 * exp(log_gain_plain(...))``;
-    ``Iv0`` itself when there are no segments."""
-    Iv = Iv0.to(torch.float64)
-    if ivl.shape[1] == 0:
-        return Iv
-    return Iv * torch.exp(log_gain_plain(ivl, gvl, gv))
+def iv_flags(Iv: torch.Tensor) -> torch.Tensor:
+    """Per-ray flag bytes [B] u8 of spectra [B, K]: :data:`FLAG_NEG` where
+    some entry is negative, :data:`FLAG_NAN` where some entry is NaN."""
+    neg = torch.any(Iv < 0.0, dim=1).to(torch.uint8)
+    nan = torch.any(Iv != Iv, dim=1).to(torch.uint8)
+    return neg * FLAG_NEG | nan * FLAG_NAN
 
 
-def _check(Iv0, ivl, gvl, gv):
-    dev = Iv0.device
-    if Iv0.dtype != torch.float64 or Iv0.dim() != 2 \
-            or not Iv0.is_contiguous():
-        raise ValueError("amplify_gain: Iv0 must be a contiguous float64 "
-                         "[B, K] tensor")
-    B, K = Iv0.shape
+def amplify_gain_plain(f: torch.Tensor, fv: torch.Tensor,
+                       escaped: torch.Tensor, ivl: torch.Tensor,
+                       gvl: torch.Tensor, gv: torch.Tensor):
+    """Plain twin of kernel B3: ``(Iv, flags)`` with ``Iv = where(escaped,
+    0, f * fv) * exp(log_gain_plain(...))`` and ``flags = iv_flags(Iv)``."""
+    Iv0 = f[:, None] * fv[None, :]
+    Iv0 = torch.where(escaped[:, None], 0.0, Iv0)
+    Iv = Iv0 * torch.exp(log_gain_plain(ivl, gvl, gv))
+    return Iv, iv_flags(Iv)
+
+
+def _check(f, fv, escaped, ivl, gvl, gv):
+    dev = f.device
+    B, K = f.shape[0], fv.shape[0]
+    for name, t, dtype, shape in (("f", f, torch.float64, (B,)),
+                                  ("fv", fv, torch.float64, (K,)),
+                                  ("escaped", escaped, torch.bool, (B,))):
+        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"amplify_gain: {name} must be a contiguous "
+                             f"{dtype} {list(shape)} tensor on {dev}")
     if ivl.dim() != 3 or ivl.shape[0] != B:
         raise ValueError(f"amplify_gain: ivl must be [{B}, nseg, nsub]")
     nseg, nsub = ivl.shape[1], ivl.shape[2]
@@ -85,41 +108,54 @@ def _check(Iv0, ivl, gvl, gv):
     return B, K, nseg, nsub
 
 
-def amplify_gain(Iv0: torch.Tensor, ivl: torch.Tensor, gvl: torch.Tensor,
-                 gv: torch.Tensor) -> torch.Tensor:
-    """Gain-only amplification [B, K] f64: kernel B3 for CUDA tensors, the
-    plain twin for CPU tensors.
+def amplify_gain(f: torch.Tensor, fv: torch.Tensor, escaped: torch.Tensor,
+                 ivl: torch.Tensor, gvl: torch.Tensor, gv: torch.Tensor):
+    """Seeded gain-only amplification: ``(Iv [B, K] f64, flags [B] u8)``,
+    kernel B3 for CUDA tensors, the plain twin for CPU tensors.
 
-    ``Iv0`` [B, K] f64 entry spectra; ``ivl`` [B, nseg, nsub] i32 and
-    ``gvl`` [B, nseg, nsub] f32 from the trace; ``gv`` [nseg, cells, K] f32
-    lineshape tables of segments 1..N-1 in the cell layout ``ivl`` indexes
-    (every id must lie in [0, cells), as the trace writes them). With no
-    segments the result is ``Iv0`` and nothing is launched.
+    ``f`` [B] f64 seed factor per ray (zeros for a call without a seed);
+    ``fv`` [K] f64 frequency profile; ``escaped`` [B] bool from the trace;
+    ``ivl`` [B, nseg, nsub] i32 and ``gvl`` [B, nseg, nsub] f32 from the
+    trace; ``gv`` [nseg, cells, K] f32 lineshape tables of segments 1..N-1
+    in the cell layout ``ivl`` indexes (every id must lie in [0, cells), as
+    the trace writes them). With no segments ``Iv`` is the masked entry
+    spectrum.
     """
-    B, K, nseg, nsub = _check(Iv0, ivl, gvl, gv)
-    if Iv0.device.type == "cpu":
-        return amplify_gain_plain(Iv0, ivl, gvl, gv)
-    if Iv0.device.type != "cuda":
-        raise ValueError(f"amplify_gain: unsupported device {Iv0.device}")
-    if nseg == 0 or B == 0:
-        return Iv0
-    stream = torch.cuda.current_stream(Iv0.device).cuda_stream
-    Iv, _ = _launch(cuda_lib.load_library(), Iv0, ivl, gvl, gv, stream)
+    B, K, nseg, nsub = _check(f, fv, escaped, ivl, gvl, gv)
+    if f.device.type == "cpu":
+        return amplify_gain_plain(f, fv, escaped, ivl, gvl, gv)
+    if f.device.type != "cuda":
+        raise ValueError(f"amplify_gain: unsupported device {f.device}")
+    if K > _K_MAX:
+        raise ValueError(f"amplify_gain: the kernel takes K <= {_K_MAX}, "
+                         f"got {K}")
+    if B == 0:
+        return (torch.empty((0, K), dtype=torch.float64, device=f.device),
+                torch.empty(0, dtype=torch.uint8, device=f.device))
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    Iv, flags, _ = _launch(cuda_lib.load_library(), f, fv, escaped, ivl, gvl,
+                           gv, stream)
     global launch_count
     launch_count += 1
-    return Iv
+    return Iv, flags
 
 
-def _launch(lib, Iv0, ivl, gvl, gv, stream, log_gain=False):
-    """Launch ``rt_amplify_gain`` of ``lib`` on ``stream``; inputs already
-    checked. Returns ``(Iv, log-gain or None)``."""
-    B, K = Iv0.shape
+def _launch(lib, f, fv, escaped, ivl, gvl, gv, stream, log_gain=False):
+    """Launch ``rt_amplify_seeded`` of ``lib`` on ``stream``; inputs already
+    checked. Returns ``(Iv, flags, log-gain or None)``."""
+    B, K = f.shape[0], fv.shape[0]
     _, nseg, nsub = ivl.shape
-    Iv = torch.empty_like(Iv0)
-    gl = torch.empty_like(Iv0) if log_gain else None
-    rc = lib.rt_amplify_gain(Iv0.data_ptr(), ivl.data_ptr(), gvl.data_ptr(),
-                             gv.data_ptr(), B, nseg * nsub, nsub, gv.shape[1],
-                             K, Iv.data_ptr(),
-                             None if gl is None else gl.data_ptr(), stream)
-    cuda_lib.check(rc, "rt_amplify_gain")
-    return Iv, gl
+    dev = f.device
+    Iv = torch.empty((B, K), dtype=torch.float64, device=dev)
+    # whole 32-bit words: the kernel sets a ray's byte with a word atomicOr
+    flags = torch.empty(-(-max(B, 1) // 4) * 4, dtype=torch.uint8,
+                        device=dev)
+    gl = torch.empty_like(Iv) if log_gain else None
+    pairs = K % 2 == 0 and gv.data_ptr() % 8 == 0
+    rc = lib.rt_amplify_seeded(
+        f.data_ptr(), fv.data_ptr(), escaped.data_ptr(), ivl.data_ptr(),
+        gvl.data_ptr(), gv.data_ptr(), B, nseg, nsub, gv.shape[1], K,
+        int(pairs), Iv.data_ptr(), flags.data_ptr(),
+        None if gl is None else gl.data_ptr(), stream)
+    cuda_lib.check(rc, "rt_amplify_seeded")
+    return Iv, flags[:B], gl

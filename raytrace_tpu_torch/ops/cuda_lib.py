@@ -41,9 +41,10 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 #: would be cut to 32 bits), sizes as c_int / c_int64, scalars as c_float
 _SIGNATURES = {
     "rt_trace": [_P] * 4 + [_I64] + [_P] * 13 + [_I] * 3 + [_F] * 2
-                + [_I] * 2 + [_P] * 10 + [_P],
+                + [_I] * 2 + [_P] * 12 + [_P],
+    "rt_find_index": [_P, _I, _P, _I64, _P, _P],
     "rt_deposit": [_P, _P, _P, _I64, _I, _I, _P],
-    "rt_amplify_gain": [_P] * 4 + [_I64] + [_I] * 4 + [_P] * 3,
+    "rt_amplify_seeded": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
     "rt_gather_probe": [_P] * 3 + [_I64] + [_I] * 2 + [_P],
 }
 

@@ -7,7 +7,10 @@ rays are seeded at their entry coordinates (RayTraceImageHelper.h:530-533),
 which are the seed-beam grid points rounded to f32, so each factor is
 evaluated once per grid value per call (``raytrace_tpu`` does the same in
 ``ray_tracer._entry_seed_host``) and a ray's seed is a product of four
-table lookups.
+table lookups. The seeded path keeps it in factor form: the per-ray factor
+:func:`seed_factor` and the frequency profile ``fv``, whose outer product
+kernel B3 forms in registers (``ops/amplify_kernel.py``);
+:func:`calc_seed_entry` is that product as a [B, K] tensor.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from raytrace_tpu_torch.models.problem import DeviceSeed
 from raytrace_tpu_torch.ops.interp import pchip_eval
 
-__all__ = ["EntrySeedTables", "make_entry_seed_tables", "calc_seed_entry"]
+__all__ = ["EntrySeedTables", "make_entry_seed_tables", "seed_factor",
+           "calc_seed_entry"]
 
 
 class EntrySeedTables(NamedTuple):
@@ -50,8 +54,14 @@ def make_entry_seed_tables(seed: DeviceSeed, src_grids,
                            fv=seed.fv[:K], f0=seed.f0)
 
 
-def calc_seed_entry(tables: EntrySeedTables, i, j, k, m, K: int):
-    """Seed spectrum [B, K] f64 of the rays with grid indices (i, j, k, m)."""
+def seed_factor(tables: EntrySeedTables, i, j, k, m) -> torch.Tensor:
+    """Per-ray seed factor [B] f64 ``max(f0 fx fy fa fb, 0)`` of the rays
+    with grid indices (i, j, k, m)."""
     f = tables.f0 * tables.tx[i] * tables.ty[j] * tables.ta[k] * tables.tb[m]
-    f = torch.clamp_min(f, 0.0)
-    return f[:, None] * tables.fv[None, :K]
+    return torch.clamp_min(f, 0.0)
+
+
+def calc_seed_entry(tables: EntrySeedTables, i, j, k, m, K: int):
+    """Seed spectrum [B, K] f64 of the rays with grid indices (i, j, k, m):
+    ``seed_factor(...)[:, None] * fv[None, :K]``."""
+    return seed_factor(tables, i, j, k, m)[:, None] * tables.fv[None, :K]

@@ -77,49 +77,85 @@ def trace_batch(rays: dict, N: int, dz0: float, gain: DeviceGain,
     if dev.type != "cuda":
         raise ValueError(f"trace_batch: unsupported device {dev}")
     B = _check_inputs(rays, gain, N)
-    nseg = max(N - 1, 0)
-    if nseg == 0 or B == 0:
-        # nothing to trace: the exit ray is the entry ray
-        return trace_batch_plain(rays, N, dz0, gain, method, c, use_emis,
-                                 counts)
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = _launch(cuda_lib.load_library(), rays, B, N, dz0, gain, method, c,
                   use_emis, stream, counts)
-    global launch_count
-    launch_count += 1
+    if B > 0:
+        global launch_count
+        launch_count += 1
     return out
 
 
+#: the refill's two counters per (device, stream): zero between launches,
+#: since each launch's last thread zeroes them
+_counters: dict = {}
+
+
+def _counter(dev: torch.device, stream) -> torch.Tensor:
+    key = (str(dev), stream)
+    ctr = _counters.get(key)
+    if ctr is None:
+        # setdefault: threads that race here all get the same pair
+        ctr = _counters.setdefault(
+            key, torch.zeros(2, dtype=torch.int64, device=dev))
+    return ctr
+
+
 def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
-            counts=False):
+            counts=False, census=False):
     """Allocate the outputs and launch ``rt_trace`` of ``lib`` on
-    ``stream``; inputs already checked. Returns the TraceResult, and the
-    micro-step counts too with ``counts``."""
+    ``stream`` (none for a batch of no rays); inputs already checked.
+    Returns the TraceResult; with ``counts`` also the micro-step counts,
+    and with ``census`` also each ray's number of cell entries (``(res,
+    steps, cells)``, for the operation count of the kernel's bound)."""
     dev = rays["x"].device
-    nseg = N - 1
+    nseg = max(N - 1, 0)
     f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     gvl = torch.empty((B, nseg, N_SUB), **f32)
     evl = torch.empty((B, nseg, N_SUB), **f32)
-    ivl = torch.empty((B, nseg, N_SUB), dtype=torch.int32, device=dev)
+    ivl = torch.empty((B, nseg, N_SUB), **i32)
     ex, ey, ea, eb = (torch.empty(B, **f32) for _ in range(4))
     esc = torch.empty(B, dtype=torch.uint8, device=dev)
     perp = torch.empty(B, dtype=torch.uint8, device=dev)
-    steps = torch.empty(B, dtype=torch.int32, device=dev) if counts else None
-    absy = gain.abs_y.to(torch.int32)
-    rc = lib.rt_trace(
-        rays["x"].data_ptr(), rays["y"].data_ptr(), rays["a"].data_ptr(),
-        rays["b"].data_ptr(), B,
-        gain.x.data_ptr(), gain.y.data_ptr(), gain.cdx.data_ptr(),
-        gain.cdy.data_ptr(), gain.n4.data_ptr(), gain.g0.data_ptr(),
-        gain.E0.data_ptr(), gain.Gx.data_ptr(), gain.Gy.data_ptr(),
-        gain.range4.data_ptr(), absy.data_ptr(), gain.nx.data_ptr(),
-        gain.ny.data_ptr(), gain.x.shape[1], gain.y.shape[1], N,
-        float(dz0), float(c), int(method), int(bool(use_emis)),
-        gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(), ex.data_ptr(),
-        ey.data_ptr(), ea.data_ptr(), eb.data_ptr(), esc.data_ptr(),
-        perp.data_ptr(), None if steps is None else steps.data_ptr(), stream)
-    cuda_lib.check(rc, "rt_trace")
+    steps = torch.empty(B, **i32) if counts or census else None
+    cells = torch.empty(B, **i32) if census else None
+    if B > 0:
+        absy = gain.abs_y.to(torch.int32)
+        rc = lib.rt_trace(
+            rays["x"].data_ptr(), rays["y"].data_ptr(), rays["a"].data_ptr(),
+            rays["b"].data_ptr(), B,
+            gain.x.data_ptr(), gain.y.data_ptr(), gain.cdx.data_ptr(),
+            gain.cdy.data_ptr(), gain.n4.data_ptr(), gain.g0.data_ptr(),
+            gain.E0.data_ptr(), gain.Gx.data_ptr(), gain.Gy.data_ptr(),
+            gain.range4.data_ptr(), absy.data_ptr(), gain.nx.data_ptr(),
+            gain.ny.data_ptr(), gain.x.shape[1], gain.y.shape[1], N,
+            float(dz0), float(c), int(method), int(bool(use_emis)),
+            gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(), ex.data_ptr(),
+            ey.data_ptr(), ea.data_ptr(), eb.data_ptr(), esc.data_ptr(),
+            perp.data_ptr(), None if steps is None else steps.data_ptr(),
+            None if cells is None else cells.data_ptr(),
+            _counter(dev, stream).data_ptr(), stream)
+        cuda_lib.check(rc, "rt_trace")
     res = TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=ex, exit_y=ey,
                       exit_a=ea, exit_b=eb, escaped=esc.view(torch.bool),
                       perp=perp.view(torch.bool))
+    if census:
+        return res, steps, cells
     return (res, steps) if counts else res
+
+
+def find_index_launch(lib, X: torch.Tensor, y: torch.Tensor,
+                      stream) -> torch.Tensor:
+    """The kernel's interval search (``rt_find_index`` of ``lib``) over the
+    f64 queries ``y`` on the f64 grid ``X`` (at least 2 points): the first
+    i in [1, n-1] with X[i] >= y, or n-1, as int32."""
+    if X.dtype != torch.float64 or X.dim() != 1 or X.shape[0] < 2:
+        raise ValueError("find_index_launch: X must be a float64 grid of at "
+                         "least 2 points")
+    X, y = X.contiguous(), y.to(torch.float64).contiguous()
+    out = torch.empty(y.shape, dtype=torch.int32, device=y.device)
+    rc = lib.rt_find_index(X.data_ptr(), X.shape[0], y.data_ptr(),
+                           y.numel(), out.data_ptr(), stream)
+    cuda_lib.check(rc, "rt_find_index")
+    return out

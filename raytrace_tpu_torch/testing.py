@@ -21,7 +21,59 @@ from raytrace_tpu_torch.structures import (
 )
 
 __all__ = ["synthetic_problem", "perturbed_problems", "time_stream_rounds",
-           "time_stream_detailed", "amplify_inputs"]
+           "time_stream_detailed", "amplify_inputs", "source_rays",
+           "seed_factors", "ASE_SHAPE", "SEED_SHAPE"]
+
+#: ``synthetic_problem`` arguments of the two shipped shapes: the widths of
+#: ``ASE_small.dat`` (399,000 rays, nv 52, method 1) and of
+#: ``seed_small.dat`` (7,803,000 rays, nv 82, method 2) with synthetic tables
+ASE_SHAPE = dict(nx=60, ny=25, na=19, nb=14, nv=52, N=3, gain_nx=106,
+                 gain_ny=26)
+SEED_SHAPE = dict(nx=118, ny=25, na=50, nb=50, nv=82, N=3, seeded=True,
+                  seed_dim=251, gain_nx=106, gain_ny=26)
+
+
+def source_rays(p, n=None, device="cpu"):
+    """The first ``n`` rays (all by default) of the work unit in natural
+    (b-fastest) order, as the port's chunks enumerate them: f32 ``x, y, a,
+    b`` [n] on ``device``."""
+    import torch
+
+    from raytrace_tpu_torch.models.ray_tracer import _unflatten_rays
+
+    src = p.seed_beam if p.seed is not None else p.euv_beam
+    total = src.nx * src.ny * src.na * src.nb
+    ijkm = torch.arange(min(n or total, total), device=device)
+    i, j, k, m = _unflatten_rays(ijkm, (src.nx, src.ny, src.na, src.nb))
+    grids = [torch.as_tensor(np.asarray(g, np.float64), device=device)
+             .float() for g in (src.x, src.y, src.a, src.b)]
+    return {"x": grids[0][i], "y": grids[1][j], "a": grids[2][k],
+            "b": grids[3][m]}
+
+
+def seed_factors(p, n=None, device="cpu"):
+    """Kernel B3's seed inputs for the first ``n`` rays of a seeded work
+    unit in natural order, as ``create_image`` forms them: ``(f [n] f64,
+    fv [K] f64)`` on ``device``."""
+    import torch
+
+    from raytrace_tpu_torch.models.problem import (seed_arrays,
+                                                   seed_from_tensors)
+    from raytrace_tpu_torch.models.ray_tracer import _unflatten_rays
+    from raytrace_tpu_torch.ops import seed as seed_ops
+
+    src = p.seed_beam
+    dims = (src.nx, src.ny, src.na, src.nb)
+    total = dims[0] * dims[1] * dims[2] * dims[3]
+    grids = [torch.as_tensor(np.asarray(g, np.float64), device=device)
+             .float() for g in (src.x, src.y, src.a, src.b)]
+    dseed = seed_from_tensors({k: torch.as_tensor(v, device=device)
+                               for k, v in seed_arrays(p.seed).items()},
+                              p.seed)
+    tabs = seed_ops.make_entry_seed_tables(dseed, grids, p.euv_beam.nv)
+    ijkm = torch.arange(min(n or total, total), device=device)
+    return (seed_ops.seed_factor(tabs, *_unflatten_rays(ijkm, dims)),
+            tabs.fv.contiguous())
 
 
 def amplify_inputs(B=1024, nseg=2, nsub=3, cells=2756, K=82, seed=0,

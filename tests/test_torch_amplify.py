@@ -1,14 +1,19 @@
-"""The port's gain-only amplify (the plain twin of CUDA kernel B3) against
-the JAX package.
+"""The port's seeded amplify (the plain twin of CUDA kernel B3) against the
+JAX package.
 
 * Its f64 log-gain against the Pallas kernel ``pallas_amplify.
   log_gain_fused`` in interpret mode, whose (hi, lo) f32 pair tracks the f64
   sum to ~1 ulp of the largest term: within 2e-7, the bound of
   tests/test_pallas_amplify.py.
-* Its spectrum against ``raytrace_tpu.ops.spectrum.amplify`` in float64
-  (the same sum in the same order, then ``Iv0 * exp``): 1e-14 relative.
+* Its spectrum against ``raytrace_tpu.ops.spectrum.amplify`` in float64 on
+  the masked entry seed ``where(escaped, 0, f * fv)`` (the same sum in the
+  same order, then ``Iv0 * exp``): 1e-14 relative.
+* The factor form of the entry seed (``seed_factor``, ``calc_seed_entry``)
+  against ``raytrace_tpu.ops.seed.calc_seed_entry``: 1e-14 relative.
+* The flags against the [B, K] reductions the failure codes used before
+  they moved into B3.
 * The wrapper takes the twin on CPU tensors and launches nothing; with no
-  segments it returns ``Iv0``.
+  segments it returns the masked entry seed.
 """
 
 import numpy as np
@@ -17,15 +22,29 @@ import torch
 
 import raytrace_tpu  # noqa: F401  (JAX package: x64 + CPU config)
 import jax.numpy as jnp
+from raytrace_tpu.models.problem import prepare_seed as jax_prepare_seed
 from raytrace_tpu.ops import pallas_amplify as pa
+from raytrace_tpu.ops import seed as jax_seed
 from raytrace_tpu.ops import spectrum as jax_spectrum
 from raytrace_tpu.ops.stepper import TraceResult as JaxTraceResult
+from raytrace_tpu.testing import synthetic_problem as jax_synthetic
 
-from raytrace_tpu_torch.ops import amplify_kernel, spectrum
-from raytrace_tpu_torch.ops.stepper import TraceResult
+from raytrace_tpu_torch.convert import problem_from_jax
+from raytrace_tpu_torch.models.problem import seed_arrays, seed_from_tensors
+from raytrace_tpu_torch.ops import amplify_kernel, seed as seed_ops
 from raytrace_tpu_torch.testing import amplify_inputs
 
 torch.set_num_threads(2)
+
+
+def _seeded(B, nseg=2, seed=3, K=82, spread=None):
+    """(f, fv, escaped, ivl, gvl, gv) as numpy arrays: a seed factor per
+    ray, the frequency profile and about one escaped ray in eight."""
+    ivl, gvl, gv = amplify_inputs(B=B, nseg=nseg, K=K, seed=seed,
+                                  spread=spread)
+    rng = np.random.default_rng(seed + 10)
+    return (rng.random(B), rng.uniform(0.1, 2.0, K), rng.random(B) < 0.125,
+            ivl, gvl, gv)
 
 
 @pytest.mark.parametrize("spread", [None, 40])
@@ -43,49 +62,94 @@ def test_log_gain_vs_pallas_interpret(spread):
 
 @pytest.mark.parametrize("nseg", [1, 2])
 def test_amplify_vs_jax_f64(nseg):
-    ivl, gvl, gv = amplify_inputs(B=512, nseg=nseg, seed=3)
-    K = gv.shape[2]
-    Iv0 = np.random.default_rng(5).random((ivl.shape[0], K))
+    f, fv, esc, ivl, gvl, gv = _seeded(512, nseg=nseg)
+    Iv0 = np.where(esc[:, None], 0.0, f[:, None] * fv[None, :])
     res = JaxTraceResult(gvl=jnp.asarray(gvl), evl=jnp.zeros(gvl.shape),
                          ivl=jnp.asarray(ivl), exit_x=None, exit_y=None,
                          exit_a=None, exit_b=None, escaped=None, perp=None)
     want = np.asarray(jax_spectrum.amplify(
         res, jnp.asarray(Iv0), jnp.asarray(gv), nseg + 1, False,
         dtype=jnp.float64))
-    got = amplify_kernel.amplify_gain_plain(
-        *(torch.from_numpy(a) for a in (Iv0, ivl, gvl, gv))).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-14, atol=0)
+    got, flags = amplify_kernel.amplify_gain_plain(
+        *(torch.from_numpy(a) for a in (f, fv, esc, ivl, gvl, gv)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=0)
+    assert not flags.any()
+
+
+def test_seed_factor_vs_jax_entry_seed():
+    """The per-ray factor times fv is the JAX package's entry seed."""
+    pj = jax_synthetic(seeded=True)
+    p = problem_from_jax(pj)
+    K, src = p.euv_beam.nv, p.seed_beam
+    grids = [np.asarray(g, np.float64) for g in (src.x, src.y, src.a, src.b)]
+    dseed = seed_from_tensors({k: torch.from_numpy(v) for k, v in
+                               seed_arrays(p.seed).items()}, p.seed)
+    tabs = seed_ops.make_entry_seed_tables(
+        dseed, [torch.from_numpy(g.astype(np.float32)) for g in grids], K)
+    tabs_j = jax_seed.make_entry_seed_tables(
+        jax_prepare_seed(pj.seed), [jnp.asarray(g) for g in grids], K)
+    rng = np.random.default_rng(0)
+    idx = [rng.integers(0, len(g), 2000) for g in grids]
+    f = seed_ops.seed_factor(tabs, *(torch.from_numpy(i) for i in idx))
+    got = seed_ops.calc_seed_entry(tabs, *(torch.from_numpy(i) for i in idx),
+                                   K)
+    assert torch.equal(got, f[:, None] * tabs.fv[None, :])
+    want = np.asarray(jax_seed.calc_seed_entry(
+        tabs_j, *(jnp.asarray(i) for i in idx), K))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=0)
+    assert (f > 0).any() and (f >= 0).all()
+
+
+def test_flags_equal_the_reductions():
+    """The twin's flag bits are the [B, K] any(Iv < 0) and any(Iv != Iv)
+    reductions: a negative and a NaN fv entry reach every ray that did not
+    escape; escaped rays are 0 and unflagged."""
+    f, fv, esc, ivl, gvl, gv = (torch.from_numpy(a) for a in _seeded(300))
+    fv[3], fv[7] = -1.0, float("nan")
+    Iv, flags = amplify_kernel.amplify_gain_plain(f, fv, esc, ivl, gvl, gv)
+    neg = torch.any(Iv < 0.0, dim=1)
+    nan = torch.any(Iv != Iv, dim=1)
+    assert torch.equal((flags & amplify_kernel.FLAG_NEG) != 0, neg)
+    assert torch.equal((flags & amplify_kernel.FLAG_NAN) != 0, nan)
+    assert torch.equal(nan, ~esc) and torch.equal(neg, ~esc & (f > 0))
+    assert torch.equal(Iv[esc], torch.zeros_like(Iv[esc]))
 
 
 def test_no_segments_returns_iv0():
-    Iv0 = torch.from_numpy(np.random.default_rng(1).random((64, 7)))
+    f, fv, esc, *_ = (torch.from_numpy(a) for a in _seeded(64, K=7))
     ivl = torch.zeros((64, 0, 3), dtype=torch.int32)
     gvl = torch.zeros((64, 0, 3), dtype=torch.float32)
     gv = torch.zeros((0, 10, 7), dtype=torch.float32)
-    assert torch.equal(amplify_kernel.amplify_gain(Iv0, ivl, gvl, gv), Iv0)
+    Iv, flags = amplify_kernel.amplify_gain(f, fv, esc, ivl, gvl, gv)
+    assert torch.equal(Iv, torch.where(esc[:, None], 0.0,
+                                       f[:, None] * fv[None, :]))
+    assert not flags.any()
 
 
 def test_spectrum_gain_only_goes_through_the_wrapper():
-    """spectrum.amplify's gain-only branch is the wrapper; on CPU tensors
-    the wrapper is the twin and launches nothing."""
-    ivl, gvl, gv = (torch.from_numpy(a) for a in amplify_inputs(B=256, seed=7))
-    Iv0 = torch.from_numpy(np.random.default_rng(2).random((256, 82)))
-    res = TraceResult(gvl=gvl, evl=torch.zeros_like(gvl), ivl=ivl,
-                      exit_x=None, exit_y=None, exit_a=None, exit_b=None,
-                      escaped=None, perp=None)
+    """The seeded call's gain-only amplify is B3's wrapper
+    (``ray_tracer._dispatch``); on CPU tensors the wrapper is the twin and
+    launches nothing."""
+    f, fv, esc, ivl, gvl, gv = (torch.from_numpy(a)
+                                for a in _seeded(256, seed=7))
     before = amplify_kernel.launch_count
-    got = spectrum.amplify(res, Iv0, gv, gv.shape[0] + 1, use_emis=False)
+    got, flags = amplify_kernel.amplify_gain(f, fv, esc, ivl, gvl, gv)
     assert amplify_kernel.launch_count == before
-    assert torch.equal(got, amplify_kernel.amplify_gain_plain(Iv0, ivl, gvl,
-                                                              gv))
+    want, want_flags = amplify_kernel.amplify_gain_plain(f, fv, esc, ivl,
+                                                         gvl, gv)
+    assert torch.equal(got, want) and torch.equal(flags, want_flags)
 
 
 def test_wrapper_checks_its_inputs():
-    ivl, gvl, gv = (torch.from_numpy(a) for a in amplify_inputs(B=256, seed=8))
-    Iv0 = torch.zeros((256, 82), dtype=torch.float64)
+    f, fv, esc, ivl, gvl, gv = (torch.from_numpy(a)
+                                for a in _seeded(256, seed=8))
     with pytest.raises(ValueError):
-        amplify_kernel.amplify_gain(Iv0.float(), ivl, gvl, gv)
+        amplify_kernel.amplify_gain(f.float(), fv, esc, ivl, gvl, gv)
     with pytest.raises(ValueError):
-        amplify_kernel.amplify_gain(Iv0, ivl.long(), gvl, gv)
+        amplify_kernel.amplify_gain(f, fv, esc, ivl.long(), gvl, gv)
     with pytest.raises(ValueError):
-        amplify_kernel.amplify_gain(Iv0, ivl, gvl, gv[:, :, :40])
+        amplify_kernel.amplify_gain(f, fv, esc, ivl, gvl, gv[:, :, :40])
+    with pytest.raises(ValueError):
+        amplify_kernel.amplify_gain(f, fv[:40], esc, ivl, gvl, gv)
+    with pytest.raises(ValueError):
+        amplify_kernel.amplify_gain(f, fv, esc.to(torch.uint8), ivl, gvl, gv)

@@ -10,6 +10,7 @@ import torch
 
 import raytrace_tpu
 from raytrace_tpu.testing import synthetic_problem as jax_synthetic
+from raytrace_tpu.utils.errors import RayTraceError as JaxRayTraceError
 
 from raytrace_tpu_torch import create_image, load_input
 from raytrace_tpu_torch.models.ray_tracer import (generate_ray_indices,
@@ -176,3 +177,28 @@ def test_method_resolution():
         resolve_method("cuda", "cpu")  # the kernels need a CUDA device
     with pytest.raises(RayTraceError):
         resolve_method("no-such-method")
+
+
+@pytest.mark.parametrize("bad", ["negative", "nan"])
+def test_seeded_failure_path_vs_jax(tmp_path, bad):
+    """Seeded (gain-only) failure codes -2 and -3 now come from B3's
+    per-ray flags: a negative or a NaN entry of the seed's frequency
+    profile fails every ray that did not escape, as the JAX package's
+    [B, K] checks do, and the dumps name the same rays."""
+    kw = dict(seeded=True, refraction_free=True, nx=6, ny=4, na=4, nb=3,
+              nv=5)
+    pj = jax_synthetic(**kw)
+    pj.seed.f[4][2] = -0.5 if bad == "negative" else np.nan
+    from raytrace_tpu_torch.convert import problem_from_jax
+
+    p = problem_from_jax(pj)
+    dump, dump_j = tmp_path / "port.dat", tmp_path / "jax.dat"
+    with pytest.raises(RayTraceError):
+        create_image(p, "cpu", failed_ray_path=str(dump))
+    with pytest.raises(JaxRayTraceError):
+        raytrace_tpu.create_image(pj, "lax-exact",
+                                  failed_ray_path=str(dump_j))
+    rays, method, N, _dz, _gains = read_failures(str(dump))
+    rays_j = read_failures(str(dump_j))[0]
+    assert method == 2 and N == p.N and len(rays) > 0
+    np.testing.assert_array_equal(rays, rays_j)

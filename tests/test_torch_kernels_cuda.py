@@ -52,6 +52,55 @@ def test_trace_kernel_vs_twin(cuda, method, kwargs):
     assert torch.equal(got.escaped, want.escaped)
     rel = (got.gvl - want.gvl).abs() / want.gvl.abs().clamp_min(1e-6)
     assert rel.max().item() < 1e-5
+    # the launch's last thread zeroed the refill's counters again
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not trace_kernel._counter(cuda, stream).any()
+
+
+@pytest.mark.parametrize("method", [1, 2])
+def test_trace_kernel_one_segment(cuda, method):
+    """N = 1 launches the kernel too (no segment to walk): the exit rays
+    bitwise equal to the twin's, no micro-steps."""
+    p = synthetic_problem(N=1, seeded=method == 2)
+    rays = _rays(p, 1000, 4, cuda)
+    gain = prepare_gain(p.gain, cuda)
+    args = (rays, p.N, p.euv_beam.dz, gain, method, 0.5, method == 1)
+    before = trace_kernel.launch_count
+    got, steps = trace_kernel.trace_batch(*args, counts=True)
+    torch.cuda.synchronize()
+    assert trace_kernel.launch_count == before + 1
+    want, _ = trace_kernel.trace_batch_plain(*args, counts=True)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert not steps.any()
+
+
+def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
+    """B1 and B3 on a batch of no rays: empty results on the card, no
+    launch counted, and no plain twin called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+
+    for mod, name in ((amplify_kernel, "amplify_gain_plain"),
+                      (amplify_kernel, "log_gain_plain"),
+                      (amplify_kernel, "iv_flags"),
+                      (trace_kernel, "trace_batch_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    f, fv, esc, ivl, gvl, gv = _seeded_inputs(8, None, cuda)
+    before = amplify_kernel.launch_count, trace_kernel.launch_count
+    Iv, flags = amplify_kernel.amplify_gain(f[:0], fv, esc[:0], ivl[:0],
+                                            gvl[:0], gv)
+    assert Iv.shape == (0, 82) and Iv.dtype == torch.float64
+    assert flags.shape == (0,) and flags.dtype == torch.uint8
+    assert Iv.device.type == flags.device.type == "cuda"
+    p = synthetic_problem()
+    rays = {k: v[:0] for k, v in _rays(p, 1, 0, cuda).items()}
+    res, steps = trace_kernel.trace_batch(
+        rays, p.N, p.euv_beam.dz, prepare_gain(p.gain, cuda), 1, counts=True)
+    assert res.gvl.shape == (0, p.N - 1, 3) and steps.shape == (0,)
+    assert res.exit_x.device.type == "cuda"
+    assert (amplify_kernel.launch_count,
+            trace_kernel.launch_count) == before
 
 
 @pytest.mark.parametrize("K,C", [(52, 1500), (1, 266)])
@@ -102,24 +151,69 @@ def test_trace_counts_vs_twin(cuda, method, kwargs):
     assert steps.min().item() >= 1
 
 
-@pytest.mark.parametrize("spread", [None, 40])
-def test_amplify_kernel_vs_twin(cuda, spread):
-    """B3 at the seeded shipped widths: the log-gain bitwise, the spectrum
-    within 1e-13 (CUDA's exp against PyTorch's)."""
-    ivl, gvl, gv = (torch.as_tensor(a, device=cuda)
-                    for a in amplify_inputs(B=65536, spread=spread))
-    rng = np.random.default_rng(6)
-    Iv0 = torch.as_tensor(rng.random((65536, gv.shape[2])), device=cuda)
+def _seeded_inputs(B, spread, device, K=82, seed=6):
+    ivl, gvl, gv = (torch.as_tensor(a, device=device)
+                    for a in amplify_inputs(B=B, K=K, spread=spread))
+    rng = np.random.default_rng(seed)
+    f = torch.as_tensor(rng.random(B), device=device)
+    fv = torch.as_tensor(rng.uniform(0.1, 2.0, K), device=device)
+    esc = torch.as_tensor(rng.random(B) < 0.125, device=device)
+    return f, fv, esc, ivl, gvl, gv
+
+
+@pytest.mark.parametrize("spread,K", [(None, 82), (40, 82), (None, 7)])
+def test_amplify_kernel_vs_twin(cuda, spread, K):
+    """B3 at the seeded shipped widths (and an odd K): the log-gain
+    bitwise, the spectrum within 1e-13 (CUDA's exp against PyTorch's), the
+    flags identical."""
+    args = _seeded_inputs(65536, spread, cuda, K)
     before = amplify_kernel.launch_count
-    got = amplify_kernel.amplify_gain(Iv0, ivl, gvl, gv)
+    got, flags = amplify_kernel.amplify_gain(*args)
     torch.cuda.synchronize()
     assert amplify_kernel.launch_count == before + 1
-    _, gl = amplify_kernel._launch(cuda_lib.load_library(), Iv0, ivl, gvl,
-                                   gv, torch.cuda.current_stream().cuda_stream,
-                                   log_gain=True)
-    assert torch.equal(gl, amplify_kernel.log_gain_plain(ivl, gvl, gv))
-    want = amplify_kernel.amplify_gain_plain(Iv0, ivl, gvl, gv)
-    assert ((got - want).abs() / want.abs()).max().item() < 1e-13
+    _, _, gl = amplify_kernel._launch(
+        cuda_lib.load_library(), *args,
+        torch.cuda.current_stream().cuda_stream, log_gain=True)
+    assert torch.equal(gl, amplify_kernel.log_gain_plain(*args[3:]))
+    want, want_flags = amplify_kernel.amplify_gain_plain(*args)
+    ok = want != 0
+    assert torch.equal(got == 0, ~ok)
+    assert ((got - want)[ok].abs() / want[ok].abs()).max().item() < 1e-13
+    assert torch.equal(flags, want_flags)
+
+
+def test_amplify_kernel_flags(cuda):
+    """Both flag bits on the card: a negative and a NaN fv entry."""
+    f, fv, esc, ivl, gvl, gv = _seeded_inputs(65537, None, cuda)
+    fv[5], fv[9] = -0.5, float("nan")
+    got, flags = amplify_kernel.amplify_gain(f, fv, esc, ivl, gvl, gv)
+    want, want_flags = amplify_kernel.amplify_gain_plain(f, fv, esc, ivl,
+                                                         gvl, gv)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal((flags & amplify_kernel.FLAG_NAN) != 0, ~esc)
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+def test_find_index_kernel_vs_searchsorted(cuda):
+    """B1's interval search against the twin's clamped searchsorted on a
+    uniform grid and three warped ones, grid lines, their neighbours, NaN
+    and the infinities included."""
+    from raytrace_tpu_torch.ops.interp import find_index
+
+    rng = np.random.default_rng(3)
+    for X in (np.linspace(-3e-3, 9e-3, 106),
+              np.sort(rng.uniform(-1.0, 1.0, 26)) ** 3,
+              -3e-3 + 1.2e-2 * np.linspace(0.0, 1.0, 106) ** 1.8,
+              np.geomspace(1e-6, 1.0, 106)):
+        y = np.concatenate([X, np.nextafter(X, -np.inf),
+                            np.nextafter(X, np.inf),
+                            rng.uniform(X[0] - 1e-3, X[-1] + 1e-3, 100000),
+                            [np.nan, np.inf, -np.inf]])
+        Xt, yt = (torch.as_tensor(a, device=cuda) for a in (X, y))
+        got = trace_kernel.find_index_launch(
+            cuda_lib.load_library(), Xt, yt,
+            torch.cuda.current_stream().cuda_stream)
+        assert torch.equal(got.long(), find_index(Xt, yt))
 
 
 def test_gather_probe_kernel_vs_twin(cuda):
