@@ -26,9 +26,12 @@ fails (non-zero exit, no result line) if any phase fails:
    the twin, counts included; amplify B3 on that seeded chunk traced by
    B1 with its seed factors (log-gain bitwise, spectrum within 1e-13
    relative, flags identical, and both flag bits from an fv with a
-   negative and a NaN entry); deposit B2 on seeded random bins (1e-12
-   relative) and at the real bins of both shapes, timed in turns with
-   ``index_add_`` (its ``library_ms``); probe P1 at K 64 (bitwise);
+   negative and a NaN entry); the binning deposit B2 on random
+   coordinates at both image shapes and at the real inputs of both shapes
+   (bins bitwise equal to get_index's, image and I_ang within 1e-12
+   relative of the twin), timed in turns with ``index_add_`` of the image
+   alone (its ``library_ms``), with the mean run of equal image bins and
+   the atomics it issues; probe P1 at K 64 (bitwise);
 4. with every launch count at 0: ``create_image`` on both golden fixtures
    (``check_ans`` at 5e-6 and a two-sided relative L2 below 1e-5 against
    the embedded golden), then the two shipped-shape synthetics (ASE
@@ -69,9 +72,9 @@ FIXTURES = os.path.join(HERE, "tests", "fixtures")
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 #: the device of the kernel phase's tensors
 DEV = "cuda"
-#: B2's random-bin checks at the image shapes (name, rays, K, image cells)
-RANDOM_BIN_SHAPES = (("ase", 399000, 52, 60 * 25),
-                     ("seed", 1 << 20, 82, 118 * 25))
+#: B2's random-coordinate checks on the beams of the main path's shapes
+#: (phase_trace_shapes' name, binning method, rays)
+RANDOM_COORD_RAYS = (("ase_call", 1, 399000), ("seed_chunk", 2, 1 << 20))
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -402,35 +405,92 @@ def phase_amplify(results, cell):
     cell.update(Iv=got, flags=flags)
 
 
+def run_stats(bins, K, tile=32):
+    """``(mean run length, atomics)`` of B2 on ``bins`` ([B, 2] i32 from
+    its bins output): the mean length of the runs of equal image bins
+    among the deposited rays in launch order, and the f64 atomics the
+    kernel issues, one per frequency for each run inside a warp's tile of
+    ``tile`` rays plus one per ray deposited into I_ang."""
+    img = bins[:, 0].long()
+    idx = torch.nonzero(img >= 0).squeeze(1)
+    v = img[idx]
+    n = idx.numel()
+    if n == 0:
+        return 0.0, int((bins[:, 1] >= 0).sum())
+    change = torch.ones(n, dtype=torch.bool, device=bins.device)
+    change[1:] = v[1:] != v[:-1]
+    in_tile = change.clone()
+    t = idx // tile
+    in_tile[1:] |= t[1:] != t[:-1]
+    return (n / int(change.sum()),
+            int(in_tile.sum()) * K + int((bins[:, 1] >= 0).sum()))
+
+
+def deposit_check(name, args, beam, method, C, A):
+    """B2 against its twin on the card on one set of inputs: the bins
+    bitwise equal to get_index's (through the bins output), image and I_ang
+    within 1e-12 relative. Returns the bins and the largest absolute and
+    relative (to the largest cell) errors."""
+    from raytrace_tpu_torch.ops import cuda_lib, deposit_kernel
+    from raytrace_tpu_torch.ops.binning import bin_indices
+
+    Iv, coords, ok, scale = args
+    K = Iv.shape[1]
+    f64 = dict(dtype=torch.float64, device=DEV)
+
+    def acc():
+        return (torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64))
+
+    got, want = acc(), acc()
+    deposit_kernel.bin_deposit(Iv, coords, ok, beam, method, scale, *got)
+    deposit_kernel.bin_deposit_plain(Iv, coords, ok, beam, method, scale,
+                                     *want)
+    bins = deposit_kernel._launch(
+        cuda_lib.load_library(), Iv, coords, ok, beam, method, scale, *acc(),
+        torch.cuda.current_stream().cuda_stream, bins=True)
+    torch.cuda.synchronize()
+    if not torch.equal(bins, bin_indices(coords, ok, beam, method)):
+        fail(f"deposit {name}: bins differ from get_index's")
+    worst = (0.0, 0.0)
+    for what, g, w in zip(("image", "I_ang"), got, want):
+        e = ((g - w).abs().max() / w.abs().max()).item()
+        if not e <= 1e-12 or g.isnan().any():
+            fail(f"deposit {name}: {what} max rel {e} against the twin")
+        worst = (max(worst[0], (g - w).abs().max().item()),
+                 max(worst[1], e))
+    return bins, worst
+
+
 def phase_deposit(results, shapes):
-    """B2 on seeded random bins at the image shapes (1e-12 relative), then
-    at the real bins of the seeded chunk (B1's exit rays, B3's spectra) and
-    of the ASE call (entry rays, the plain emissivity amplify), each timed
-    in turns with ``index_add_`` into a [C + 1, K] buffer whose last row
-    takes the trash bin, and with the twin."""
+    """B2 (bins, scale, I_ang sum and run-merged f64 atomics in one
+    kernel) against its twin on random coordinates at both image shapes,
+    then at the real inputs of the seeded chunk (B1's exit rays, B3's
+    spectra) and of the ASE call (entry rays, the plain emissivity
+    amplify): bins bitwise, image and I_ang within 1e-12; each real input
+    timed in turns with ``index_add_`` of the image alone into a [C + 1, K]
+    buffer whose last row takes the trash, and the twin timed."""
     from raytrace_tpu_torch.models.problem import prepare_beam
     from raytrace_tpu_torch.models.ray_tracer import _validate
     from raytrace_tpu_torch.ops import (amplify_kernel, binning,
                                         deposit_kernel, spectrum)
+    from raytrace_tpu_torch.testing import deposit_inputs
 
-    rng = np.random.default_rng(0)
-    dep_worst = 0.0
-    for name, B, K, C in RANDOM_BIN_SHAPES:
-        contrib = torch.as_tensor(rng.standard_normal((B, K)), device=DEV)
-        bins = torch.as_tensor(rng.integers(0, C + 1, B).astype(np.int32),
-                               device=DEV)
-        got = deposit_kernel.deposit(
-            torch.zeros((C, K), dtype=torch.float64, device=DEV),
-            contrib, bins)
-        want = deposit_kernel.deposit_plain(
-            torch.zeros((C, K), dtype=torch.float64, device=DEV),
-            contrib, bins)
-        e = ((got - want).abs().max() / want.abs().max()).item()
-        if e > 1e-12:
-            fail(f"deposit {name}: max rel {e}")
-        dep_worst = max(dep_worst, (got - want).abs().max().item())
-        print(f"deposit random bins {name} B={B} K={K} C={C}: max rel "
-              f"{e:.2e}", flush=True)
+    dep_worst = (0.0, 0.0)
+    for name, method, B in RANDOM_COORD_RAYS:
+        p = shapes[name]["p"]
+        beam = prepare_beam(p.euv_beam, DEV)
+        Iv, coords, ok = deposit_inputs(p.euv_beam, B, seed=0)
+        args = (torch.as_tensor(Iv, device=DEV),
+                tuple(torch.as_tensor(c, device=DEV) for c in coords),
+                torch.as_tensor(ok, device=DEV), 0.37)
+        C, A = p.euv_beam.nx * p.euv_beam.ny, p.euv_beam.na * p.euv_beam.nb
+        bins, e = deposit_check(f"random {name}", args, beam, method, C, A)
+        dep_worst = tuple(map(max, dep_worst, e))
+        print(f"deposit random coordinates {name} B={B} K={Iv.shape[1]} "
+              f"method {method}: bins bitwise, image and I_ang within 1e-12 "
+              f"(max rel {e[1]:.2e}); image rays "
+              f"{int((bins[:, 0] >= 0).sum())}, I_ang rays "
+              f"{int((bins[:, 1] >= 0).sum())}", flush=True)
 
     for name in ("seed_chunk", "ase_call"):
         cell = shapes[name]
@@ -446,45 +506,57 @@ def phase_deposit(results, shapes):
         else:
             Iv, flags = cell["Iv"], cell["flags"]
         scale = _validate(p)[2]
-        bx, by, _, _ = binning.bin_coords(res, rays, beam, method)
-        i1 = binning.get_index(beam.x, beam.dx, bx)
-        i2 = binning.get_index(beam.y, beam.dy, by)
-        nx, ny = beam.x.shape[0], beam.y.shape[0]
-        C = nx * ny
-        ok = (i1 >= 0) & (i2 >= 0) & ~res.perp & (flags == 0)
-        bins = torch.where(ok, i1 + i2 * nx, C).to(torch.int32)
-        contrib = (Iv * scale).contiguous()
-        B, K = contrib.shape
-        out = torch.zeros((C, K), dtype=torch.float64, device=DEV)
+        coords = binning.source_coords(res, rays, method)
+        ok = ~res.perp & (flags == 0)
+        B, K = Iv.shape
+        C, A = beam.x.shape[0] * beam.y.shape[0], (beam.a.shape[0]
+                                                   * beam.b.shape[0])
+        bins, e = deposit_check(f"real {name}", (Iv, coords, ok, scale),
+                                beam, method, C, A)
+        dep_worst = tuple(map(max, dep_worst, e))
+        image = torch.zeros((C, K), dtype=torch.float64, device=DEV)
+        i_ang = torch.zeros((A, 1), dtype=torch.float64, device=DEV)
         lib_out = torch.zeros((C + 1, K), dtype=torch.float64, device=DEV)
-        deposit_kernel.deposit(out, contrib, bins)
-        lib_out.index_add_(0, bins, contrib)
-        e = ((out - lib_out[:C]).abs().max() / lib_out.abs().max()).item()
-        if e > 1e-12:
-            fail(f"deposit {name} real bins: B2 against index_add_ max rel "
-                 f"{e}")
+        lib_bins = torch.where(bins[:, 0] >= 0, bins[:, 0], C).contiguous()
+        contrib = (Iv * scale).contiguous()
+        dep = (Iv, coords, ok, beam, method, scale, image, i_ang)
         t = in_turns({
-            "kernel": lambda: deposit_kernel.deposit(out, contrib, bins),
-            "library": lambda: lib_out.index_add_(0, bins, contrib)}, 20)
-        plain_ms = cuda_ms(
-            lambda: deposit_kernel.deposit_plain(out, contrib, bins), 10)
-        trash = int((bins == C).sum())
-        nbytes = (B - trash) * K * 8 + B * 4 + 2 * C * K * 8
-        b_ms, b_by = bound(nbytes, f64_ops=(B - trash) * K)
+            "kernel": lambda: deposit_kernel.bin_deposit(*dep),
+            "library": lambda: lib_out.index_add_(0, lib_bins, contrib)},
+            20)
+        plain_ms = cuda_ms(lambda: deposit_kernel.bin_deposit_plain(*dep),
+                           10)
+        n_img = int((bins[:, 0] >= 0).sum())
+        n_ang = int((bins[:, 1] >= 0).sum())
+        n_read = int(((bins[:, 0] >= 0) | (bins[:, 1] >= 0)).sum())
+        grids = sum(g.numel() * 8 for g in (beam.x, beam.y, beam.a, beam.b,
+                                            beam.dv))
+        nbytes = (n_read * K * 8 + B * 16 + B + 2 * (C * K + A) * 8
+                  + grids)
+        b_ms, b_by = bound(nbytes, f64_ops=2 * K * (n_img + n_ang))
+        mean_run, atomics = run_stats(bins, K)
         ms, lib_ms = mean(t["kernel"]), mean(t["library"])
-        print(f"deposit real bins {name} B={B} K={K} C={C}: trash share "
-              f"{trash / B:.4f}; B2 {t['kernel']} ms, index_add_ "
-              f"{t['library']} ms (B2/index_add_ {ms / lib_ms:.3f}), plain "
-              f"{plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by "
-              f"{b_by}, {b_ms / ms:.3f} of it reached", flush=True)
+        print(f"deposit real inputs {name} B={B} K={K} C={C}: bins bitwise, "
+              f"max rel {e[1]:.2e} against the twin; image rays {n_img}, "
+              f"I_ang rays {n_ang}; mean image run {mean_run:.2f} rays in "
+              f"launch "
+              f"order, {atomics} atomics (one a ray and frequency: "
+              f"{n_img * K + n_ang}); B2 {t['kernel']} ms, index_add_ of "
+              f"the image alone {t['library']} ms (B2/index_add_ "
+              f"{ms / lib_ms:.3f}), plain twin {plain_ms:.4f} ms; {nbytes} "
+              f"bytes: bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.3f} of "
+              f"it reached", flush=True)
         record[f"deposit_{name}"] = dict(
-            B=B, K=K, C=C, trash_share=trash / B, ms_readings=t["kernel"],
+            B=B, K=K, C=C, image_rays=n_img, iang_rays=n_ang,
+            mean_run=mean_run, atomics=atomics, ms_readings=t["kernel"],
             library_ms_readings=t["library"], ms=ms, library_ms=lib_ms,
             plain_ms=plain_ms, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
         if name == "seed_chunk":
-            results["deposit"] = dict(
-                max_abs_err=dep_worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            results["bin_deposit"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+    results["bin_deposit"].update(max_abs_err=dep_worst[0],
+                                  max_rel_err=dep_worst[1])
 
 
 def phase_probe_kernel(results):
@@ -675,7 +747,7 @@ def main() -> int:
     results = {}
     phase_kernels(results)
 
-    wrappers = {"trace": trace_kernel, "deposit": deposit_kernel,
+    wrappers = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
                 "amplify": amplify_kernel, "gather_probe": gather_probe}
     WRAPPERS.update(wrappers)
 
@@ -692,7 +764,7 @@ def main() -> int:
                 fail(f"kernel {n} was not launched on the {what}")
         return out, counts
 
-    path_kernels = ("trace", "deposit", "amplify")
+    path_kernels = ("trace", "bin_deposit", "amplify")
     outs, launches = run_path("main path", phase_main_path, path_kernels)
     _, stream_launches = run_path("stream path", phase_stream, path_kernels)
     _, probe_launches = run_path("probe path", phase_probe_path,
@@ -705,7 +777,8 @@ def main() -> int:
     kernels = []
     for name, src, replaces in (
             ("trace", "trace.cu", "raytrace_tpu/ops/pallas_kernel.py:402"),
-            ("deposit", "deposit.cu", "raytrace_tpu/ops/deposit_kernel.py:76"),
+            ("bin_deposit", "deposit.cu",
+             "raytrace_tpu/ops/deposit_kernel.py:76"),
             ("amplify", "amplify.cu",
              "raytrace_tpu/ops/pallas_amplify.py:123"),
             ("gather_probe", "gather_probe.cu", "tools/vpu_probe.py:112")):

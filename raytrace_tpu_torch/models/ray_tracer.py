@@ -9,7 +9,8 @@ PyTorch, following ``raytrace_tpu.models.ray_tracer``:
 * the N_start/N_parallel stride contract (RayTraceImage.cpp:300-328);
 * per chunk: entry rays -> trace -> f64 amplify (seeded: the per-ray seed
   factor into kernel B3, which forms the entry spectrum and flags bad
-  spectra) -> deposit into the call's f64 image and I_ang accumulators;
+  spectra) -> binning deposit (kernel B2: bins, scale and the I_ang sum in
+  one pass) into the call's f64 image and I_ang accumulators;
 * per-ray failure codes -1/-2/-3 -> bitmask on the device -> (only when a
   bit is set) the codes, failed-ray dump and abort (RayTraceImage.cpp:
   427-430).
@@ -425,11 +426,11 @@ def _dispatch(problem, name, dev, chunk_size, c, streams=None,
     if name == "cuda":
         trace, gain_only, deposit = (trace_kernel.trace_batch,
                                      amplify_kernel.amplify_gain,
-                                     deposit_kernel.deposit)
+                                     deposit_kernel.bin_deposit)
     else:
         trace, gain_only, deposit = (stepper.trace_batch_plain,
                                      amplify_kernel.amplify_gain_plain,
-                                     deposit_kernel.deposit_plain)
+                                     deposit_kernel.bin_deposit_plain)
 
     # one upload of the problem tables per call
     t, part = _upload(problem, src, dev, streams)

@@ -34,16 +34,18 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                    ctypes.c_float)
+_P, _I, _I64, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float, ctypes.c_double)
 
 #: argtypes per C entry: pointers and the stream as c_void_p (a plain int
 #: would be cut to 32 bits), sizes as c_int / c_int64, scalars as c_float
+#: or c_double
 _SIGNATURES = {
     "rt_trace": [_P] * 4 + [_I64] + [_P] * 13 + [_I] * 3 + [_F] * 2
                 + [_I] * 2 + [_P] * 12 + [_P],
     "rt_find_index": [_P, _I, _P, _I64, _P, _P],
-    "rt_deposit": [_P, _P, _P, _I64, _I, _I, _P],
+    "rt_bin_deposit": [_P] * 6 + [_I64, _I, _I] + [_P, _I, _D] * 4
+                      + [_P, _D, _I, _I] + [_P] * 3 + [_P],
     "rt_amplify_seeded": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
     "rt_gather_probe": [_P] * 3 + [_I64] + [_I] * 2 + [_P],
 }

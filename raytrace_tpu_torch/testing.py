@@ -22,7 +22,7 @@ from raytrace_tpu_torch.structures import (
 
 __all__ = ["synthetic_problem", "perturbed_problems", "time_stream_rounds",
            "time_stream_detailed", "amplify_inputs", "source_rays",
-           "seed_factors", "ASE_SHAPE", "SEED_SHAPE"]
+           "seed_factors", "deposit_inputs", "ASE_SHAPE", "SEED_SHAPE"]
 
 #: ``synthetic_problem`` arguments of the two shipped shapes: the widths of
 #: ``ASE_small.dat`` (399,000 rays, nv 52, method 1) and of
@@ -97,6 +97,41 @@ def amplify_inputs(B=1024, nseg=2, nsub=3, cells=2756, K=82, seed=0,
     gvl = (rng.standard_normal((B, nseg, nsub)) * 0.1).astype(np.float32)
     gv = (rng.standard_normal((nseg, cells, K)) * 0.5).astype(np.float32)
     return ivl, gvl, gv
+
+
+def deposit_inputs(beam, B, seed=0, nan_share=0.01):
+    """Binning deposit inputs on an EUV beam's grids as numpy arrays
+    ``(Iv [B, K] f64, (x, y, a, b) [B] f32 each, ok [B] bool)``.
+
+    Each coordinate is drawn over the half-cell-padded grid and beyond, or
+    over its negation (what method 2's mirror and negated angles map back),
+    or is a grid point or a half-cell edge; ``nan_share`` of them are NaN
+    (get_index puts NaN in the last interval, as the reference's bisection
+    does; ``raytrace_tpu``'s count puts it in the first). Consecutive
+    rays repeat one draw for a run of 1 to 40 rays, as entry rays
+    repeat their cell. About one ray in ten is not ok and carries a NaN or
+    negative spectrum; the rest positive ones."""
+    rng = np.random.default_rng(seed)
+    starts = np.cumsum(rng.integers(1, 41, B))
+    draw = np.searchsorted(starts, np.arange(B), side="right")
+    n = int(draw[-1]) + 1 if B else 0
+    coords = []
+    for g, d in ((beam.x, beam.dx), (beam.y, beam.dy), (beam.a, beam.da),
+                 (beam.b, beam.db)):
+        g = np.asarray(g, np.float64)
+        span = rng.uniform(g[0] - d, g[-1] + d, n)
+        span = np.where(rng.random(n) < 0.5, span, -span)
+        edges = np.concatenate([g, g - 0.5 * d, g + 0.5 * d])
+        on_grid = edges[rng.integers(0, len(edges), n)]
+        c = np.where(rng.random(n) < 0.2, on_grid, span)
+        c[rng.random(n) < nan_share] = np.nan
+        coords.append(c.astype(np.float32)[draw])
+    K = beam.nv
+    Iv = rng.uniform(0.1, 2.0, (B, K))
+    ok = rng.random(B) > 0.1
+    bad = np.where(rng.random((B, 1)) < 0.5, np.nan, -1.0)
+    Iv = np.where(ok[:, None], Iv, bad * Iv)
+    return Iv, tuple(coords), ok
 
 
 def perturbed_problems(source, n, salt=0, scale=None):

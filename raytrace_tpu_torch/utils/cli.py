@@ -11,8 +11,9 @@ Usage (the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
       -iterations=N        timed calls per method (default 5)
       -scale=S             problem-size scale factor (default 1.0)
       -profile             trace the timed calls with torch.profiler and
-                           print device time per kernel and the device's
-                           busy share of the timed wall time
+                           print device time per kernel, kernel launches
+                           per call and the device's busy share of the
+                           timed wall time
       -stream=N            also time serving mode: N work units with
                            distinct gain tables (perturbed copies of the
                            file, as production changes the tables every
@@ -115,9 +116,11 @@ def _print_profile(prof, wall_s: float, calls: int, top: int = 12) -> None:
         rows, key, what = list(events), "self_cpu_time_total", "CPU"
     rows = sorted(rows, key=lambda e: getattr(e, key), reverse=True)
     total_us = sum(getattr(e, key) for e in rows)
+    launches = (f", {sum(e.count for e in kernels) / calls:.1f} kernel "
+                f"launches/call" if kernels else "")
     print(f"  profile: {what} time {total_us / 1e3 / calls:.3f} ms/call "
           f"of {wall_s * 1e3 / calls:.3f} ms/call wall (busy share "
-          f"{total_us / 1e6 / wall_s:.3f})")
+          f"{total_us / 1e6 / wall_s:.3f}){launches}")
     for e in rows[:top]:
         print(f"    {getattr(e, key) / 1e3 / calls:10.3f} ms/call "
               f"{e.count / calls:7.1f}x  {e.key[:100]}")

@@ -77,6 +77,7 @@ inline unsigned __activemask() { return 1u; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 template <class T> inline T __shfl_sync(unsigned, T v, int, int = 32) { return v; }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int, int = 32) { return v; }
 """
 
 #: a launch ``kernel<...><<<grid, block, 0, stream>>>(args);`` with the
@@ -226,16 +227,71 @@ def test_trace_source_ragged_grids(host_lib, method):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
-def test_deposit_source_equals_twin(host_lib):
-    rng = np.random.default_rng(2)
-    B, K, C = 3000, 7, 40
-    contrib = torch.from_numpy(rng.standard_normal((B, K)))
-    bins = torch.from_numpy(rng.integers(0, C + 1, B).astype(np.int32))
-    want = deposit_kernel.deposit_plain(
-        torch.zeros((C, K), dtype=torch.float64), contrib, bins)
-    got = torch.zeros((C, K), dtype=torch.float64)
-    deposit_kernel._launch(host_lib, got, contrib, bins, B, K, C, None)
-    torch.testing.assert_close(got, want, rtol=1e-14, atol=1e-14)
+def _deposit_case(shape, method, B, seed):
+    """B2's inputs on CPU tensors at ``shape``'s beam widths: coordinates
+    over the padded grids and beyond, runs of equal bins, rays that are not
+    ok with NaN or negative spectra (``testing.deposit_inputs``)."""
+    from raytrace_tpu_torch.models.problem import prepare_beam
+    from raytrace_tpu_torch.testing import deposit_inputs
+
+    p = synthetic_problem(**shape)
+    Iv, coords, ok = deposit_inputs(p.euv_beam, B, seed)
+    beam = prepare_beam(p.euv_beam)
+    args = (torch.from_numpy(Iv), tuple(torch.from_numpy(c) for c in coords),
+            torch.from_numpy(ok), beam, method, 0.37)
+    return args, beam
+
+
+def _accumulators(beam, K, fill=0.0):
+    return (torch.full((beam.x.shape[0] * beam.y.shape[0], K), fill,
+                       dtype=torch.float64),
+            torch.full((beam.a.shape[0] * beam.b.shape[0], 1), fill,
+                       dtype=torch.float64))
+
+
+@pytest.mark.parametrize("method", [1, 2])
+@pytest.mark.parametrize("shape", [
+    dict(nx=60, ny=25, na=19, nb=14, nv=52),
+    dict(nx=118, ny=25, na=50, nb=50, nv=82, seeded=True),
+    dict(nx=9, ny=6, na=7, nb=5, nv=7, full_plane=True),
+], ids=["ase-widths", "seeded-widths", "odd-K-full-plane"])
+def test_deposit_source_equals_twin(host_lib, method, shape):
+    """B2's source: the bins bitwise equal to the twin's get_index, the
+    image and I_ang within 1e-14 of the twin's (the kernel sums I_ang per
+    frequency pair and merges runs of equal image bins, the twin adds each
+    ray through index_add_ and a gemv), added in place on top of what the
+    accumulators held; no NaN from the rays that are not ok."""
+    from raytrace_tpu_torch.ops.binning import bin_indices
+
+    args, beam = _deposit_case(shape, method, 3000, 5)
+    Iv, coords, ok = args[:3]
+    K = Iv.shape[1]
+    deposit_kernel._check(*args[:4], *_accumulators(beam, K))
+    got = _accumulators(beam, K, 1.0)
+    bins = deposit_kernel._launch(host_lib, *args, *got, None, bins=True)
+    want = _accumulators(beam, K, 1.0)
+    deposit_kernel.bin_deposit_plain(*args, *want)
+    assert torch.equal(bins, bin_indices(coords, ok, beam, method))
+    assert (bins[:, 0] >= 0).sum() > 500 and (bins[:, 1] >= 0).sum() > 500
+    for g, w in zip(got, want):
+        assert not g.isnan().any()
+        torch.testing.assert_close(g, w, rtol=1e-14, atol=0)
+
+
+def test_deposit_source_skips_trash_in_place(host_lib):
+    """Rays that are not ok, or land outside the grid, deposit nothing,
+    even with NaN spectra; with no ray ok the accumulators stay as they
+    were."""
+    args, beam = _deposit_case(dict(nx=9, ny=6, na=7, nb=5, nv=6), 2, 500,
+                               6)
+    Iv, coords, ok = args[:3]
+    none = torch.zeros_like(ok)
+    got = _accumulators(beam, Iv.shape[1], 2.5)
+    bins = deposit_kernel._launch(host_lib, Iv, coords, none, *args[3:],
+                                  *got, None, bins=True)
+    assert torch.equal(bins, torch.full_like(bins, -1))
+    for g in got:
+        assert torch.equal(g, torch.full_like(g, 2.5))
 
 
 def _seeded_inputs(B, nseg, spread, K=82, seed=4):

@@ -76,18 +76,23 @@ def test_trace_kernel_one_segment(cuda, method):
 
 
 def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
-    """B1 and B3 on a batch of no rays: empty results on the card, no
-    launch counted, and no plain twin called."""
+    """B1, B2 and B3 on a batch of no rays: empty results on the card (B2
+    leaves its accumulators as they were), no launch counted, and no plain
+    twin called."""
     def refuse(*args, **kwargs):
         raise AssertionError("a plain twin ran on CUDA tensors")
 
     for mod, name in ((amplify_kernel, "amplify_gain_plain"),
                       (amplify_kernel, "log_gain_plain"),
                       (amplify_kernel, "iv_flags"),
-                      (trace_kernel, "trace_batch_plain")):
+                      (trace_kernel, "trace_batch_plain"),
+                      (deposit_kernel, "bin_deposit_plain"),
+                      (deposit_kernel, "deposit_plain"),
+                      (deposit_kernel, "bin_indices")):
         monkeypatch.setattr(mod, name, refuse)
     f, fv, esc, ivl, gvl, gv = _seeded_inputs(8, None, cuda)
-    before = amplify_kernel.launch_count, trace_kernel.launch_count
+    before = (amplify_kernel.launch_count, trace_kernel.launch_count,
+              deposit_kernel.launch_count)
     Iv, flags = amplify_kernel.amplify_gain(f[:0], fv, esc[:0], ivl[:0],
                                             gvl[:0], gv)
     assert Iv.shape == (0, 82) and Iv.dtype == torch.float64
@@ -99,22 +104,61 @@ def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
         rays, p.N, p.euv_beam.dz, prepare_gain(p.gain, cuda), 1, counts=True)
     assert res.gvl.shape == (0, p.N - 1, 3) and steps.shape == (0,)
     assert res.exit_x.device.type == "cuda"
-    assert (amplify_kernel.launch_count,
-            trace_kernel.launch_count) == before
+    Iv, coords, ok, beam, image, i_ang = _deposit_args(
+        dict(nx=9, ny=6, na=7, nb=5, nv=6), 1, 0, cuda)
+    image.fill_(1.0)
+    deposit_kernel.bin_deposit(Iv, coords, ok, beam, 1, 1.0, image, i_ang)
+    assert torch.equal(image, torch.ones_like(image))
+    assert (amplify_kernel.launch_count, trace_kernel.launch_count,
+            deposit_kernel.launch_count) == before
 
 
-@pytest.mark.parametrize("K,C", [(52, 1500), (1, 266)])
-def test_deposit_kernel_vs_twin(cuda, K, C):
-    rng = np.random.default_rng(1)
-    B = 100_000
-    contrib = torch.as_tensor(rng.standard_normal((B, K)), device=cuda)
-    bins = torch.as_tensor(rng.integers(0, C + 1, B).astype(np.int32),
-                           device=cuda)
-    got = deposit_kernel.deposit(
-        torch.zeros((C, K), dtype=torch.float64, device=cuda), contrib, bins)
-    want = deposit_kernel.deposit_plain(
-        torch.zeros((C, K), dtype=torch.float64, device=cuda), contrib, bins)
-    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-12
+def _deposit_args(shape, method, B, device, seed=1):
+    from raytrace_tpu_torch.models.problem import prepare_beam
+    from raytrace_tpu_torch.testing import deposit_inputs
+
+    p = synthetic_problem(**shape)
+    Iv, coords, ok = deposit_inputs(p.euv_beam, B, seed)
+    beam = prepare_beam(p.euv_beam, device)
+    K = Iv.shape[1]
+    f64 = dict(dtype=torch.float64, device=device)
+    return (torch.as_tensor(Iv, device=device),
+            tuple(torch.as_tensor(c, device=device) for c in coords),
+            torch.as_tensor(ok, device=device), beam,
+            torch.zeros((beam.x.shape[0] * beam.y.shape[0], K), **f64),
+            torch.zeros((beam.a.shape[0] * beam.b.shape[0], 1), **f64))
+
+
+@pytest.mark.parametrize("method", [1, 2])
+@pytest.mark.parametrize("shape", [
+    dict(nx=60, ny=25, na=19, nb=14, nv=52),
+    dict(nx=118, ny=25, na=50, nb=50, nv=82, seeded=True),
+    dict(nx=9, ny=6, na=7, nb=5, nv=7, full_plane=True),
+], ids=["ase-widths", "seeded-widths", "odd-K-full-plane"])
+def test_deposit_kernel_vs_twin(cuda, method, shape):
+    """B2 on the card: one launch, the bins bitwise equal to the twin's
+    get_index, image and I_ang within 1e-12 of the twin's, no NaN from the
+    rays that are not ok."""
+    from raytrace_tpu_torch.ops.binning import bin_indices
+
+    Iv, coords, ok, beam, image, i_ang = _deposit_args(shape, method,
+                                                       100_000, cuda)
+    before = deposit_kernel.launch_count
+    deposit_kernel.bin_deposit(Iv, coords, ok, beam, method, 0.37, image,
+                               i_ang)
+    torch.cuda.synchronize()
+    assert deposit_kernel.launch_count == before + 1
+    want = (torch.zeros_like(image), torch.zeros_like(i_ang))
+    deposit_kernel.bin_deposit_plain(Iv, coords, ok, beam, method, 0.37,
+                                     *want)
+    bins = deposit_kernel._launch(
+        cuda_lib.load_library(), Iv, coords, ok, beam, method, 0.37,
+        torch.zeros_like(image), torch.zeros_like(i_ang),
+        torch.cuda.current_stream().cuda_stream, bins=True)
+    assert torch.equal(bins, bin_indices(coords, ok, beam, method))
+    for got, w in zip((image, i_ang), want):
+        assert not got.isnan().any()
+        assert ((got - w).abs().max() / w.abs().max()).item() < 1e-12
 
 
 def test_create_image_fixture_on_card(cuda):
