@@ -50,7 +50,27 @@ fails (non-zero exit, no result line) if any phase fails:
    gather; P1 must have launched;
 7. the shipped-shape calls once more through the plain twins on the card,
    in the kernels' 2^20-ray chunks: image and I_ang within a relative L2
-   of 1e-5 of the kernels' result.
+   of 1e-5 of the kernels' result;
+8. with the counts at 0 again, the multi-device and multi-rank path:
+   ``create_image_sharded`` on a two-entry mesh of the one card
+   (``("cuda:0", "cuda:0")``, each entry on a compute stream of its own)
+   and on ``make_mesh()`` (every visible card): both fixtures against their
+   goldens as in phase 4, both shipped shapes within 1e-12 relative L2 of
+   the single-device call (one warmup, three timed calls in turns with the
+   single call); ``create_image_stream(mesh=...)`` at depth 2 over 4
+   perturbed units of each shape, every yield within 1e-12 of the
+   synchronous sharded call. The single-device calls made beside them do
+   not count, and each sharded call and stream must itself launch B1 and
+   B2, and B3 on a seeded problem. Then, as subprocesses with their own
+   time limits: the CLI with ``-methods=cuda -nprocs=2 -iterations=3``
+   (two ranks on the card, joined by gloo; each rank's s/call) on both
+   fixtures and on both shipped shapes, saved under ``build/`` with the
+   single call's result as their golden: every golden check passed, and
+   an exit code that is exactly the number of the reference's
+   timing-stability gate errors the ranks printed (two ranks time-slicing
+   the card trip them in about half the runs, on either kind of input);
+   and ``raytrace_tpu_torch/tools/production_loop.py`` with 1 and with 2
+   ranks, every rank on cuda:0 (E_sum within 1e-10 relative).
 
 Prints one JSON line of per-kernel results, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. A longer record of every measurement
@@ -720,6 +740,304 @@ def phase_plain(outs):
                                           plain_s=dt)
 
 
+def cli_gate_errors(out):
+    """The timing-stability gate errors (CreateImage.cpp:174-181) that the
+    CLI's ranks printed: each counts one error in the CLI's exit code."""
+    return sum(out.count(msg) for msg in (
+        "Standard deviation of run times is larger than 10%",
+        "Maximum run time is more than 15% greater than the average"))
+
+
+def run_children(argvs, timeout, what, gate_errors_ok=False):
+    """Run each of ``argvs`` from the checkout's root, each in a session of
+    its own, all at once; at the time limit every session (a launcher's
+    ranks too) is killed. Fails the phase on a non-zero exit, except, with
+    ``gate_errors_ok``, one that :func:`cli_gate_errors` accounts for
+    exactly (the caller checks it); returns each ``(output, exit code)``."""
+    import signal
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for argv in argvs]
+    outs = []
+    for proc in procs:
+        try:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            outs.append(proc.communicate(timeout=left)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                if q.poll() is None:
+                    os.killpg(q.pid, signal.SIGKILL)
+            print(proc.communicate()[0][-4000:], flush=True)
+            fail(f"{what}: no end within {timeout} s")
+    for proc, out in zip(procs, outs):
+        if proc.returncode != 0 and not (
+                gate_errors_ok
+                and proc.returncode == min(cli_gate_errors(out), 255)):
+            print(out[-4000:], flush=True)
+            fail(f"{what}: exit code {proc.returncode}")
+    print(f"{what}: exit codes {[p.returncode for p in procs]} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return [(out, p.returncode) for out, p in zip(outs, procs)]
+
+
+def production_loops():
+    """E_sum per step of the production loop tool with 1 rank and, at the
+    same time, with 2 ranks on the card (rank 0's lines)."""
+    import re
+    import socket
+
+    tool = os.path.join("raytrace_tpu_torch", "tools", "production_loop.py")
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    outs = run_children([[sys.executable, tool]]
+                        + [[sys.executable, tool, str(pid), "2", port]
+                           for pid in range(2)], 300,
+                        "production loop, 1 rank and 2 ranks")
+    esums = []
+    for (out, _rc), ranks in zip(outs[:2], (1, 2)):
+        esum = [float(m) for m in re.findall(r"E_sum=([0-9.e+-]+)", out)]
+        if len(esum) != 2 or not all(np.isfinite(esum)) or min(esum) <= 0:
+            fail(f"production loop: E_sum {esum}")
+        # every rank on the card, and every step computed there
+        on_card = ("rank devices: " + " ".join(["cuda:0"] * ranks) in out
+                   and out.count(f"(ranks={ranks}, cuda:0)") == 2)
+        if not on_card:
+            print(out[-4000:], flush=True)
+            fail(f"production loop, {ranks} rank(s): not every rank on "
+                 f"cuda:0")
+        esums.append(esum)
+    return esums
+
+
+def profile_calls(fn, n=3):
+    """``(device ms, kernel launches, {kernel: device ms})`` per call of
+    ``fn`` over ``n`` calls under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+    k = [e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA]
+    per = {name: sum(e.self_device_time_total for e in k if tag in e.key)
+           / n / 1e3 for name, tag in (("trace", "trace_kernel"),
+                                       ("bin_deposit", "bin_deposit_kernel"),
+                                       ("amplify", "amplify_seeded_kernel"))}
+    return (sum(e.self_device_time_total for e in k) / n / 1e3,
+            sum(e.count for e in k) / n, per)
+
+
+def uncounted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every kernel's launch count left as it was:
+    a call made as a reference or a yardstick does not count for the path
+    being driven."""
+    before = {n: w.launch_count for n, w in WRAPPERS.items()}
+    try:
+        return fn(*args, **kw)
+    finally:
+        for n, w in WRAPPERS.items():
+            w.launch_count = before[n]
+
+
+def path_kernels_of(p):
+    """The kernels one call of ``p`` must launch: B1 and B2, and B3 unless
+    the emissivity amplify (ASE, no seed) takes its place."""
+    emis = p.gain[0].E0 is not None and p.seed is None
+    return ("trace", "bin_deposit") + (() if emis else ("amplify",))
+
+
+def launched(what, names, fn, *args, **kw):
+    """``fn(*args, **kw)``; fails unless it launched each of ``names``
+    itself, so that the calls around it cannot stand in for it."""
+    before = {n: WRAPPERS[n].launch_count for n in names}
+    out = fn(*args, **kw)
+    made = {n: WRAPPERS[n].launch_count - before[n] for n in names}
+    if min(made.values()) <= 0:
+        fail(f"{what}: launches {made}; each of {names} must launch")
+    return out
+
+
+def phase_sharded():
+    """The multi-device path in this process: the sharded call and the
+    sharded stream on a two-entry mesh of the card and on make_mesh().
+    The single-device calls beside them (references, the timing in turns,
+    the profile) do not count; every sharded call and stream must launch
+    the kernels of its problem itself."""
+    from raytrace_tpu_torch import (check_ans, create_image,
+                                    create_image_stream, load_input)
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            perturbed_problems,
+                                            synthetic_problem)
+
+    meshes = {"2 entries on cuda:0": make_mesh(devices=("cuda:0", "cuda:0")),
+              "make_mesh()": make_mesh()}
+    for name in ("golden_ase.dat", "golden_seed.dat"):
+        for what, mesh in meshes.items():
+            p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
+            image, i_ang = launched(f"{name} sharded on {what}",
+                                    path_kernels_of(p), create_image_sharded,
+                                    p, mesh, "cuda")
+            check_output(image, i_ang, p)
+            r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
+            if (not check_ans(image0, i_ang0, image, i_ang) or r_img >= 1e-5
+                    or r_ang >= 1e-5):
+                fail(f"{name} sharded on {what}: check_ans or rel L2 image "
+                     f"{r_img} I_ang {r_ang}")
+            print(f"{name} sharded on {what} (D={len(mesh)}): check_ans ok, "
+                  f"rel L2 image {r_img:.3e} I_ang {r_ang:.3e}", flush=True)
+            record[f"{name}_sharded_D{len(mesh)}"] = dict(rel_image=r_img,
+                                                          rel_iang=r_ang)
+
+    mesh2 = meshes["2 entries on cuda:0"]
+    for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
+        p = synthetic_problem(**shape)
+        need = path_kernels_of(p)
+        single = uncounted(create_image, p, "cuda", device="cuda")
+        create_image_sharded(p, mesh2, "cuda")  # warmup
+        t_single, t_sharded = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            uncounted(create_image, p, "cuda", device="cuda")
+            t_single.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            sharded = launched(f"{name} sharded", need, create_image_sharded,
+                               p, mesh2, "cuda")
+            t_sharded.append(time.perf_counter() - t0)
+        check_output(*sharded, p)
+        worst = {}
+        for what, mesh in meshes.items():
+            got = (sharded if mesh is mesh2
+                   else launched(f"{name} sharded on {what}", need,
+                                 create_image_sharded, p, mesh, "cuda"))
+            worst[what] = max(rel_l2(got[0], single[0]),
+                              rel_l2(got[1], single[1]))
+            if worst[what] > 1e-12:
+                fail(f"{name} shipped shape sharded on {what}: rel L2 "
+                     f"{worst[what]} against the single call")
+        print(f"{name} shipped shape sharded: rel L2 against the single call "
+              f"{worst}; s/call sharded on 2 entries "
+              f"{[round(t, 5) for t in t_sharded]} (best "
+              f"{min(t_sharded):.5f}), single {[round(t, 5) for t in t_single]}"
+              f" (best {min(t_single):.5f})", flush=True)
+        prof = {"single": uncounted(profile_calls,
+                                    lambda: create_image(p, "cuda",
+                                                         device="cuda")),
+                "sharded": profile_calls(
+                    lambda: create_image_sharded(p, mesh2, "cuda"))}
+        for what, (dev_ms, n_launch, per) in prof.items():
+            print(f"{name} shipped shape {what} under the profiler: device "
+                  f"{dev_ms:.3f} ms/call, {n_launch:.1f} kernel launches/call,"
+                  f" B1 {per['trace']:.3f}, B2 {per['bin_deposit']:.3f}, B3 "
+                  f"{per['amplify']:.3f} ms/call", flush=True)
+        record[f"{name}_sharded"] = dict(rel=worst, sharded_s=t_sharded,
+                                         single_s=t_single, profile=prof)
+
+        source = functools.partial(synthetic_problem, **shape)
+        sync = [create_image_sharded(u, mesh2, "cuda")
+                for u in perturbed_problems(source, 4, salt=3)]
+        units = perturbed_problems(source, 4, salt=3)
+
+        def stream():
+            marks, worst = [], 0.0
+            for k, (image, i_ang) in enumerate(create_image_stream(
+                    units, "cuda", mesh=mesh2, depth=2)):
+                marks.append(time.perf_counter())
+                check_output(image, i_ang, units[k])
+                worst = max(worst, rel_l2(image, sync[k][0]),
+                            rel_l2(i_ang, sync[k][1]))
+            return marks, worst
+
+        t0 = time.perf_counter()
+        marks, worst_s = launched(f"sharded stream {name}", need, stream)
+        if len(marks) != 4 or worst_s > 1e-12:
+            fail(f"sharded stream {name}: {len(marks)} yields, worst rel L2 "
+                 f"against the sharded call {worst_s}")
+        per_call = (marks[-1] - t0) / 4
+        print(f"sharded stream {name} on 2 entries, depth 2: rel L2 vs sync "
+              f"<= {worst_s:.3e}; fill {marks[0] - t0:.5f} s, s/call "
+              f"{per_call:.5f}", flush=True)
+        record[f"stream_{name}_sharded"] = dict(worst_rel=worst_s,
+                                                fill_s=marks[0] - t0,
+                                                per_call_s=per_call)
+
+
+def shipped_cells():
+    """Both shipped shapes as ``.dat`` snapshots under ``build/`` (git
+    ignored), each with the single call's result on the card as its
+    golden; their paths."""
+    from raytrace_tpu_torch import create_image, save_input
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            synthetic_problem)
+
+    cells = os.path.join(HERE, "build", "chip_smoke_cells")
+    os.makedirs(cells, exist_ok=True)
+    paths = []
+    for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
+        p = synthetic_problem(**shape)
+        uncounted(create_image, p, "cuda", device="cuda")
+        paths.append(os.path.join(cells, f"{name}.dat"))
+        save_input(paths[-1], p)
+    return paths
+
+
+def cli_two_ranks(what, files):
+    """The CLI's two-rank group on the card over ``files``: every golden
+    check must pass, and the exit code must equal the timing-stability gate
+    errors the ranks printed (two ranks time-slicing the card trip them in
+    about half the runs). Returns each rank's s/call line."""
+    import re
+
+    out, rc = run_children([[sys.executable, "-m",
+                             "raytrace_tpu_torch.utils.cli", "-methods=cuda",
+                             "-nprocs=2", "-iterations=3", *files]], 300,
+                           what, gate_errors_ok=True)[0]
+    gates = cli_gate_errors(out)
+    if "Answers do not match" in out or rc != gates or (
+            "All tests passed" if rc == 0
+            else f"Some tests failed ({rc} errors)") not in out:
+        print(out[-4000:], flush=True)
+        fail(f"{what}: exit code {rc}, {gates} timing-gate errors printed")
+    print(f"{what}: golden checks passed on both ranks; exit code {rc}, "
+          f"{gates} timing-stability gate errors", flush=True)
+    ranks = re.findall(r"^  (\S+ rank \d+ s/call: .*)$", out, re.M)
+    for line in ranks:
+        print(f"  {line}", flush=True)
+    if len(ranks) != 2 * len(files):
+        fail(f"{what}: {len(ranks)} per-rank timing lines, not "
+             f"{2 * len(files)}")
+    return dict(exit_code=rc, ranks=ranks)
+
+
+def phase_ranks():
+    """The multi-rank path as subprocesses: the CLI's two-rank group on the
+    card over both fixtures and both shipped shapes, and the production
+    loop with 1 and 2 ranks."""
+    files = [os.path.join(FIXTURES, name)
+             for name in ("golden_ase.dat", "golden_seed.dat")]
+    record["nprocs2_cli"] = cli_two_ranks(
+        "CLI -methods=cuda -nprocs=2 -iterations=3 on the fixtures and the "
+        "shipped shapes", files + shipped_cells())
+    one, two = production_loops()
+    worst = max(abs(a - b) / a for a, b in zip(one, two))
+    if worst > 1e-10:
+        fail(f"production loop: E_sum 1 rank {one}, 2 ranks {two}")
+    print(f"production loop on the card: E_sum 1 rank {one}, 2 ranks {two}, "
+          f"rel {worst:.3e}", flush=True)
+    record["production_loop"] = dict(one=one, two=two, rel=worst)
+
+
+def phase_multi():
+    phase_sharded()
+    phase_ranks()
+
+
 T_START = time.perf_counter()
 
 
@@ -773,6 +1091,8 @@ def main() -> int:
     record["stream_launches"] = stream_launches
 
     phase_plain(outs)
+    _, record["multi_launches"] = run_path("multi-device path", phase_multi,
+                                           path_kernels)
 
     kernels = []
     for name, src, replaces in (

@@ -4,8 +4,9 @@ The port of ``raytrace_tpu`` (JAX on a TPU) to one NVIDIA H100: the same
 ``create_image`` main path and ``create_image_stream`` serving executor,
 with the trace, deposit and gain-only amplify kernels written by hand in
 CUDA C++ for ``sm_90a`` (``csrc/``) and plain PyTorch twins of each for the
-CPU. This package imports ``torch`` and never ``jax`` or
-``raytrace_tpu``.
+CPU. ``parallel/`` splits a call over a mesh of devices and over the
+ranks of a gloo process group. This package imports ``torch`` and never
+``jax`` or ``raytrace_tpu``.
 """
 
 from raytrace_tpu_torch.io.loader import load_input, save_input

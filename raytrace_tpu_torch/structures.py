@@ -10,6 +10,8 @@ Field-for-field copies of ``raytrace_tpu.structures``, mirroring the
 * :class:`RayGain`        <- ``ray_gain_struct``        (RayTraceStructures.h:218-272)
 * :class:`RaySeed`        <- ``ray_seed_struct``        (RayTraceStructures.h:276-318)
 * :class:`CreateImageProblem` <- ``create_image_struct`` (RayTraceStructures.h:323-357)
+* :class:`IntensityStep`  <- ``intensity_step_struct`` (RayTraceStructures.cpp:1603-1682)
+* :class:`Intensity`      <- ``intensity_struct``      (RayTraceStructures.cpp:1835-1867)
 
 The containers stay numpy; :mod:`raytrace_tpu_torch.models.problem` turns
 them into stacked tensors on a device at the compute boundary.
@@ -29,8 +31,14 @@ __all__ = [
     "RayGain",
     "RaySeed",
     "CreateImageProblem",
+    "IntensityStep",
+    "Intensity",
+    "N_SEED_MAX",
     "approx_equal",
 ]
+
+# Maximum number of seed beams (RayTraceStructures.h:15)
+N_SEED_MAX = 2
 
 
 def approx_equal(x, y, tol: float = 1e-6) -> bool:
@@ -346,3 +354,173 @@ class CreateImageProblem:
     seed: Optional[RaySeed] = None
     image: Optional[np.ndarray] = None  # (nx*ny*nv,) f64, index iv + nv*(i1 + i2*nx)
     I_ang: Optional[np.ndarray] = None  # (na*nb,) f64, index i3 + i4*na
+
+
+def _check_n_seed(N_seed: int) -> None:
+    if N_seed > N_SEED_MAX:
+        raise ValueError(f"N_seed {N_seed} exceeds N_SEED_MAX {N_SEED_MAX}")
+
+
+@dataclass
+class IntensityStep:
+    """Per-length-step accumulators (intensity_step_struct).
+
+    Dormant in the miniapp benchmark but part of the production API: it
+    defines the MPI reduction contract (sum over ranks of every image
+    buffer, RayTraceStructures.cpp:1603-1646), which :meth:`sum_reduce`
+    runs through :func:`raytrace_tpu_torch.parallel.collectives.host_sum_arrays`.
+    """
+
+    E_v: Optional[np.ndarray] = None  # (nv,)
+    image: Optional[np.ndarray] = None  # (nx*ny,)
+    E_ang: Optional[np.ndarray] = None  # (na*nb,)
+    W: Optional[np.ndarray] = None  # (nx*ny,)
+    E_v_seed: List[np.ndarray] = field(default_factory=list)
+    image_seed: List[np.ndarray] = field(default_factory=list)
+    E_ang_seed: List[np.ndarray] = field(default_factory=list)
+    nx: int = 0
+    ny: int = 0
+    na: int = 0
+    nb: int = 0
+    nv: int = 0
+
+    @property
+    def N_seed(self) -> int:
+        return len(self.E_v_seed)
+
+    def initialize(self, nx, ny, na, nb, nv, N_seed) -> "IntensityStep":
+        _check_n_seed(N_seed)
+        self.nx, self.ny, self.na, self.nb, self.nv = nx, ny, na, nb, nv
+        self.E_v = np.zeros(nv)
+        self.image = np.zeros(nx * ny)
+        self.E_ang = np.zeros(na * nb)
+        self.W = np.zeros(nx * ny)
+        self.E_v_seed = [np.zeros(nv) for _ in range(N_seed)]
+        self.image_seed = [np.zeros(nx * ny) for _ in range(N_seed)]
+        self.E_ang_seed = [np.zeros(na * nb) for _ in range(N_seed)]
+        return self
+
+    def zero(self) -> None:
+        for arr in self._all_arrays():
+            arr[:] = 0.0
+
+    def _all_arrays(self):
+        yield self.E_v
+        yield self.image
+        yield self.E_ang
+        yield self.W
+        yield from self.E_v_seed
+        yield from self.image_seed
+        yield from self.E_ang_seed
+
+    def add(self, rhs: "IntensityStep", add_W: bool) -> None:
+        """Accumulate another step (intensity_step_struct::add)."""
+        self.E_v += rhs.E_v
+        self.image += rhs.image
+        self.E_ang += rhs.E_ang
+        for s in range(self.N_seed):
+            self.E_v_seed[s] += rhs.E_v_seed[s]
+            self.image_seed[s] += rhs.image_seed[s]
+            self.E_ang_seed[s] += rhs.E_ang_seed[s]
+        if add_W:
+            self.W += rhs.W
+
+    def sum_reduce(self) -> None:
+        """Sum every accumulator across the process group's ranks in one
+        flattened all-reduce (intensity_step_struct::sum_reduce), in the
+        reference's profiler region (RayTraceStructures.cpp:1610); the
+        identity with one process."""
+        from raytrace_tpu_torch.parallel import collectives
+        from raytrace_tpu_torch.utils.timer import profiler
+
+        profiler.start("Sum reduce images")
+        arrays = list(self._all_arrays())
+        reduced = collectives.host_sum_arrays(arrays)
+        for dst, src in zip(arrays, reduced):
+            dst[:] = src
+        profiler.stop("Sum reduce images")
+
+    def valid(self) -> bool:
+        """No negative or NaN intensities (RayTraceStructures.cpp:1647-1682)."""
+        for arr in self._all_arrays():
+            if np.any(arr < 0) or np.any(arr != arr):
+                return False
+        return True
+
+
+@dataclass
+class Intensity:
+    """Stacked per-length history of intensity steps (intensity_struct)."""
+
+    E_v: Optional[np.ndarray] = None  # (N*nv,)
+    image: Optional[np.ndarray] = None  # (N*nx*ny,)
+    E_ang: Optional[np.ndarray] = None  # (N*na*nb,)
+    E_sum: Optional[np.ndarray] = None  # (N,)
+    I_it: Optional[np.ndarray] = None  # (N,)
+    E_tot: float = 0.0
+    W: Optional[np.ndarray] = None  # (N*nx*ny,)
+    E_v_seed: List[np.ndarray] = field(default_factory=list)
+    image_seed: List[np.ndarray] = field(default_factory=list)
+    E_ang_seed: List[np.ndarray] = field(default_factory=list)
+    E_sum_seed: List[np.ndarray] = field(default_factory=list)
+    I_it_seed: List[np.ndarray] = field(default_factory=list)
+    E_tot_seed: List[float] = field(default_factory=list)
+    N: int = 0
+    nx: int = 0
+    ny: int = 0
+    na: int = 0
+    nb: int = 0
+    nv: int = 0
+
+    @property
+    def N_seed(self) -> int:
+        return len(self.E_v_seed)
+
+    def initialize(self, N, nx, ny, na, nb, nv, N_seed) -> "Intensity":
+        _check_n_seed(N_seed)
+        self.N, self.nx, self.ny, self.na, self.nb, self.nv = (N, nx, ny, na,
+                                                               nb, nv)
+        self.E_v = np.zeros(N * nv)
+        self.image = np.zeros(N * nx * ny)
+        self.E_ang = np.zeros(N * na * nb)
+        self.E_sum = np.zeros(N)
+        self.I_it = np.zeros(N)
+        self.W = np.zeros(N * nx * ny)
+        self.E_tot = 0.0
+        self.E_v_seed = [np.zeros(N * nv) for _ in range(N_seed)]
+        self.image_seed = [np.zeros(N * nx * ny) for _ in range(N_seed)]
+        self.E_ang_seed = [np.zeros(N * na * nb) for _ in range(N_seed)]
+        self.E_sum_seed = [np.zeros(N) for _ in range(N_seed)]
+        self.I_it_seed = [np.zeros(N) for _ in range(N_seed)]
+        self.E_tot_seed = [0.0] * N_seed
+        return self
+
+    def copy_step(self, i: int, euv_beam: EUVBeam,
+                  step: IntensityStep) -> None:
+        """Copy a step into slot i and fill E_sum (intensity_struct::copy_step,
+        RayTraceStructures.cpp:1835-1867). Raises ValueError when the step's
+        or the beam's sizes do not match the history's."""
+        nx, ny, na, nb, nv = self.nx, self.ny, self.na, self.nb, self.nv
+        # a half-plane beam (y[0] >= 0) mirrors y: the step holds both halves
+        ny_beam = 2 * euv_beam.ny if euv_beam.y[0] >= 0 else euv_beam.ny
+        if ((nx, ny, na, nb, nv) != (step.nx, step.ny, step.na, step.nb,
+                                     step.nv)
+                or (nx, ny, na, nb, nv) != (euv_beam.nx, ny_beam, euv_beam.na,
+                                            euv_beam.nb, euv_beam.nv)):
+            raise ValueError("copy_step: the step's or the beam's sizes do "
+                             "not match the history's")
+        self.E_v[i * nv:(i + 1) * nv] = step.E_v
+        self.image[i * nx * ny:(i + 1) * nx * ny] = step.image
+        self.W[i * nx * ny:(i + 1) * nx * ny] = step.W
+        self.E_ang[i * na * nb:(i + 1) * na * nb] = step.E_ang
+        for s in range(self.N_seed):
+            self.E_v_seed[s][i * nv:(i + 1) * nv] = step.E_v_seed[s]
+            self.image_seed[s][i * nx * ny:(i + 1) * nx * ny] = \
+                step.image_seed[s]
+            self.E_ang_seed[s][i * na * nb:(i + 1) * na * nb] = \
+                step.E_ang_seed[s]
+        self.E_sum[i] = float(np.sum(step.image))
+        self.I_it[i] = 0.0
+        for s in range(self.N_seed):
+            self.E_sum_seed[s][i] = float(np.sum(step.image_seed[s]))
+            self.I_it_seed[s][i] = 0.0

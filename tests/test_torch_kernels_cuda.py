@@ -282,3 +282,57 @@ def test_stream_on_card_matches_sync(cuda, reorder):
     for (gi, ga), (wi, wa) in zip(got, want):
         assert np.linalg.norm(gi - wi) <= 1e-12 * np.linalg.norm(wi)
         assert np.linalg.norm(ga - wa) <= 1e-12 * np.linalg.norm(wa)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_sharded_on_card_matches_single(cuda, seeded):
+    """Two mesh entries on one card, each on its own compute stream: the
+    reduced images within 1e-12 of the single call, B1, B2 (and, seeded,
+    B3) launched."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+
+    want = create_image(synthetic_problem(seeded=seeded), "cuda",
+                        device=cuda)
+    before = (trace_kernel.launch_count, deposit_kernel.launch_count,
+              amplify_kernel.launch_count)
+    got = create_image_sharded(synthetic_problem(seeded=seeded),
+                               ("cuda:0", "cuda:0"), "cuda")
+    after = (trace_kernel.launch_count, deposit_kernel.launch_count,
+             amplify_kernel.launch_count)
+    assert after[0] >= before[0] + 2 and after[1] >= before[1] + 2
+    assert (after[2] > before[2]) == seeded
+    for g, w in zip(got, want):
+        assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
+
+
+@pytest.mark.parametrize("fixture", ["golden_ase.dat", "golden_seed.dat"])
+def test_sharded_fixture_on_card(cuda, fixture):
+    import os
+
+    from raytrace_tpu_torch import check_ans, load_input
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", fixture)
+    p, image0, i_ang0 = load_input(path)
+    image, i_ang = create_image_sharded(p, ("cuda:0", "cuda:0"), "cuda")
+    assert check_ans(image0, i_ang0, image, i_ang)
+
+
+@pytest.mark.parametrize("reorder", [False, True])
+def test_sharded_stream_on_card(cuda, reorder):
+    """The sharded stream on two entries of the card: every yield within
+    1e-12 of the synchronous sharded call on the same unit."""
+    from raytrace_tpu_torch import create_image_stream
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+
+    mesh = ("cuda:0", "cuda:0")
+    want = [create_image_sharded(synthetic_problem(seeded=i % 2 == 1, rng=i),
+                                 mesh, "cuda") for i in range(4)]
+    got = list(create_image_stream(
+        [synthetic_problem(seeded=i % 2 == 1, rng=i) for i in range(4)],
+        "cuda", mesh=mesh, depth=2, reorder=reorder))
+    for (gi, ga), (wi, wa) in zip(got, want):
+        assert np.linalg.norm(gi - wi) <= 1e-12 * np.linalg.norm(wi)
+        assert np.linalg.norm(ga - wa) <= 1e-12 * np.linalg.norm(wa)
