@@ -20,7 +20,8 @@ fails (non-zero exit, no result line) if any phase fails:
    normal launch; B1 on a 2^20-ray chunk of the seeded shipped
    shape and on the whole ASE call: the census launch equal to the normal
    one, the warp efficiency E of the micro-step counts, a timing in count
-   order beside launch order, and the operation bound from the counted
+   order beside launch order, the twin's time, and the operation bound
+   from the counted
    micro-steps and cell entries; the same on a seeded chunk whose gain
    grid is warped (``non_uniform_gain=0.8``), there also bitwise equal to
    the twin, counts included; amplify B3 on that seeded chunk traced by
@@ -70,7 +71,21 @@ fails (non-zero exit, no result line) if any phase fails:
    timing-stability gate errors the ranks printed (two ranks time-slicing
    the card trip them in about half the runs, on either kind of input);
    and ``raytrace_tpu_torch/tools/production_loop.py`` with 1 and with 2
-   ranks, every rank on cuda:0 (E_sum within 1e-10 relative).
+   ranks, every rank on cuda:0 (E_sum within 1e-10 relative);
+9. with the counts at 0 again, the fuzz path: the fuzz tool's ``run_case``
+   (``raytrace_tpu_torch.tools.fuzz_oracle``) on the card with its sharded
+   and stream arms, over its curated cases, 24 random ones from seed 0,
+   the envelope's edges (N 20 and nv 99, each in both methods) and two
+   cases at the shipped widths (nv 52 and 82, a 106x26 gain grid, 360 and
+   720 rays): every case with 0 problems (kernels and twins against the
+   scalar oracle's images, against each other within 1e-12, sharded and
+   streamed within 1e-12); B1, B2 and B3 launched, and every B3
+   instantiation (N 3 or not, K even or odd) and both B2 variants (K even
+   or odd) ran, by a census from each case's N and K. Then a failing
+   problem (angles beyond 1.5 rad): ``create_image`` on the kernels must
+   raise and dump the same rays as the twins, and the replay tool
+   (``python -m raytrace_tpu_torch.tools.replay_failed_rays``) must
+   reproduce ``error -1`` for every dumped ray.
 
 Prints one JSON line of per-kernel results, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. A longer record of every measurement
@@ -327,6 +342,8 @@ def phase_trace_shapes(results):
                           rays_sorted, *args)}, 10)
         ms_c = cuda_ms(lambda: trace_kernel.trace_batch(rays, *args,
                                                         counts=True), 10)
+        plain_ms = cuda_ms(lambda: trace_kernel.trace_batch_plain(rays,
+                                                                  *args), 1)
         n_steps, n_cells = int(steps.sum()), int(cells.sum())
         ops = B1_OPS
         f32 = (n_steps * ops["step_f32"] + n_cells *
@@ -340,7 +357,8 @@ def phase_trace_shapes(results):
         b_ms, b_by = bound(nbytes, f32, f64)
         ms = mean(t["natural"])
         print(f"trace {name} ({B} rays, method {method}): kernel "
-              f"{t['natural']} ms, counts variant {ms_c:.4f} ms; in count "
+              f"{t['natural']} ms, counts variant {ms_c:.4f} ms, plain twin "
+              f"{plain_ms:.3f} ms; in count "
               f"order {t['sorted']} ms; E {eff:.4f} in launch order, "
               f"{eff_sorted:.4f} in count order; micro-steps {n_steps} "
               f"(median {steps.float().median().item()}), cell entries "
@@ -349,7 +367,8 @@ def phase_trace_shapes(results):
               f"{b_ms / ms:.3f} of it reached", flush=True)
         record[f"trace_{name}"] = dict(
             rays=B, ms_readings=t["natural"], ms=ms, counts_ms=ms_c,
-            sorted_ms_readings=t["sorted"], sorted_ms=mean(t["sorted"]),
+            plain_ms=plain_ms, sorted_ms_readings=t["sorted"],
+            sorted_ms=mean(t["sorted"]),
             warp_efficiency=eff, warp_efficiency_sorted=eff_sorted,
             micro_steps=n_steps, cell_entries=n_cells, f32_ops=f32,
             f64_ops=f64, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
@@ -357,12 +376,8 @@ def phase_trace_shapes(results):
                             method=method, ms=ms, bound=(b_ms, b_by))
     # the seeded chunk: 8 of a seeded call's 8 launches, the ASE call's 1
     seed = shapes["seed_chunk"]
-    plain_ms = cuda_ms(lambda: trace_kernel.trace_batch_plain(
-        seed["rays"], seed["p"].N, seed["p"].euv_beam.dz, seed["gain"], 2,
-        0.5, False), 1)
-    record["trace_seed_chunk"]["plain_ms"] = plain_ms
-    print(f"trace seed_chunk plain twin: {plain_ms:.3f} ms", flush=True)
-    results["trace"] = dict(ms=seed["ms"], plain_ms=plain_ms,
+    results["trace"] = dict(ms=seed["ms"],
+                            plain_ms=record["trace_seed_chunk"]["plain_ms"],
                             bound_ms=seed["bound"][0],
                             bound_by=seed["bound"][1], library_ms=None)
     return shapes
@@ -1038,6 +1053,122 @@ def phase_multi():
     phase_ranks()
 
 
+#: phase 9's random cases (``fuzz_oracle.random_config``, seed 0)
+FUZZ_RANDOM = 24
+
+
+def fuzz_cases():
+    """Phase 9's cases: the fuzz tool's curated ones, ``FUZZ_RANDOM``
+    random ones, the edges of the envelope and two at the shipped widths
+    (``testing.ASE_SHAPE`` and ``SEED_SHAPE`` with 360 and 720 rays)."""
+    from raytrace_tpu_torch.testing import ASE_SHAPE, SEED_SHAPE
+    from raytrace_tpu_torch.tools import fuzz_oracle
+
+    rng = np.random.default_rng(0)
+    return (list(fuzz_oracle.CURATED)
+            + [fuzz_oracle.random_config(rng) for _ in range(FUZZ_RANDOM)]
+            + [dict(nx=3, ny=2, na=2, nb=2, nv=4, N=20),
+               dict(nx=2, ny=2, na=2, nb=2, nv=5, N=20, seeded=True,
+                    seed_dim=9),
+               dict(nx=3, ny=2, na=2, nb=2, nv=99),
+               dict(nx=2, ny=2, na=2, nb=2, nv=99, seeded=True),
+               dict(ASE_SHAPE, nx=6, ny=5, na=4, nb=3),
+               dict(SEED_SHAPE, nx=2, ny=5, na=5, nb=5)])
+
+
+#: the kernel variants each fuzz case runs, from its N and K
+#: (``csrc/amplify.cu`` ``launch<NSEG, NSUB, PAIRS>``, ``csrc/deposit.cu``
+#: ``bin_deposit_kernel<PAIRS>``; pairs where K is even)
+def b3_variant(N, K):
+    return f"<{'2,3' if N == 3 else '0,0'},{2 if K % 2 == 0 else 1}>"
+
+
+def b2_variant(K):
+    return f"<{2 if K % 2 == 0 else 1}>"
+
+
+def replay_check():
+    """A failing problem (angles beyond 1.5 rad: every ray perpendicular)
+    on the kernels must raise and dump the rays the twins' call dumps;
+    the replay tool must reproduce error -1 for every dumped ray."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.testing import synthetic_problem
+    from raytrace_tpu_torch.utils.errors import RayTraceError, read_failures
+
+    cells = os.path.join(HERE, "build", "chip_smoke_cells")
+    os.makedirs(cells, exist_ok=True)
+    dumps = {}
+    for backend in ("cuda", "cpu"):
+        p = synthetic_problem()
+        p.euv_beam.a = p.euv_beam.a + 1500.0
+        dumps[backend] = os.path.join(cells, f"failed_{backend}.dat")
+        try:
+            create_image(p, backend, device=DEV,
+                         failed_ray_path=dumps[backend])
+        except RayTraceError:
+            pass
+        else:
+            fail(f"failing problem on {backend}: create_image did not raise")
+    rays = {m: read_failures(path)[0] for m, path in dumps.items()}
+    if not (len(rays["cuda"]) > 0
+            and np.array_equal(rays["cuda"], rays["cpu"])):
+        fail(f"failure dumps: {len(rays['cuda'])} rays from the kernels, "
+             f"{len(rays['cpu'])} from the twins, equal "
+             f"{np.array_equal(rays['cuda'], rays['cpu'])}")
+    (out, _rc), = run_children(
+        [[sys.executable, "-m", "raytrace_tpu_torch.tools.replay_failed_rays",
+          dumps["cuda"]]], 120, "replay of the kernels' failure dump")
+    reproduced = out.count(": error -1 (")
+    if reproduced != len(rays["cuda"]):
+        print(out[-4000:], flush=True)
+        fail(f"replay: error -1 on {reproduced} of {len(rays['cuda'])} rays")
+    print(f"failure dump: {len(rays['cuda'])} rays from the kernels, the "
+          f"twins' rays; the replay reproduces error -1 on each", flush=True)
+    return len(rays["cuda"])
+
+
+def phase_fuzz():
+    """The fuzz tool's cases on the card with the sharded and stream arms;
+    every case with 0 problems and every kernel variant run; then the
+    replay check."""
+    from raytrace_tpu_torch.testing import synthetic_problem
+    from raytrace_tpu_torch.tools import fuzz_oracle
+
+    t0 = time.perf_counter()
+    cases = fuzz_cases()
+    sweep = fuzz_oracle.Sweep(device=DEV, sharded=True, stream=True)
+    b3 = {b3_variant(n, k): 0 for n in (3, 2) for k in (2, 1)}
+    b2 = {b2_variant(k): 0 for k in (2, 1)}
+    bad = 0
+    for ci, kw in enumerate(cases):
+        p = synthetic_problem(rng=ci, **kw)
+        before = {n: WRAPPERS[n].launch_count for n in ("amplify",
+                                                        "bin_deposit")}
+        bad += fuzz_oracle.run_case(ci, kw, sweep)
+        b3[b3_variant(p.N, p.euv_beam.nv)] += (
+            WRAPPERS["amplify"].launch_count - before["amplify"])
+        b2[b2_variant(p.euv_beam.nv)] += (
+            WRAPPERS["bin_deposit"].launch_count - before["bin_deposit"])
+    sweep.summary(len(cases), bad)
+    print(f"fuzz census of launches: B3 {b3}, B2 {b2}", flush=True)
+    if bad:
+        fail(f"fuzz path: {bad} problems in {len(cases)} cases")
+    if min(b3.values()) == 0 or min(b2.values()) == 0:
+        fail(f"fuzz path: a kernel variant never ran: B3 {b3}, B2 {b2}")
+    dumped = replay_check()
+    dt = time.perf_counter() - t0
+    w = sweep.worst
+    print(f"fuzz path: {len(cases)} cases, 0 problems, {dt:.1f} s; largest "
+          f"rel L2 against the oracle: image {w['image']:.3e}, I_ang "
+          f"{w['i_ang']:.3e}; kernels against twins {w['xbackend']:.3e}, "
+          f"stream {w['stream']:.3e}, reorder {w['reorder']:.3e}; chaos "
+          f"gate engaged {len(sweep.chaos)} times", flush=True)
+    record["fuzz"] = dict(cases=len(cases), seconds=dt, worst=w,
+                          chaos_engagements=len(sweep.chaos),
+                          chaos=sweep.chaos, census_b3=b3, census_b2=b2,
+                          replayed_rays=dumped)
+
+
 T_START = time.perf_counter()
 
 
@@ -1093,6 +1224,8 @@ def main() -> int:
     phase_plain(outs)
     _, record["multi_launches"] = run_path("multi-device path", phase_multi,
                                            path_kernels)
+    _, record["fuzz_launches"] = run_path("fuzz path", phase_fuzz,
+                                          path_kernels)
 
     kernels = []
     for name, src, replaces in (

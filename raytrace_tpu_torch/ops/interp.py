@@ -6,6 +6,7 @@ helpers, src/common/RayTraceImageHelper.h:101-220):
 * :func:`find_first_single` -- batched ``findfirstsingle``
 * :func:`find_index`        -- batched ``findindex``
 * :func:`bilinear`          -- float32 bilinear blend
+* :func:`interp_linear`     -- batched ``interp::interp_linear``
 * :func:`pchip_coefficients` / :func:`pchip_eval` -- monotone cubic hermite
   with the limited gradients precomputed per interval on the host
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["find_first_single", "find_index", "bilinear",
+__all__ = ["find_first_single", "find_index", "bilinear", "interp_linear",
            "pchip_coefficients", "pchip_eval"]
 
 
@@ -52,6 +53,17 @@ def bilinear(dx, dy, f1, f2, f3, f4):
     dx2 = 1.0 - dx
     dy2 = 1.0 - dy
     return (dx * f2 + dx2 * f1) * dy2 + (dx * f4 + dx2 * f3) * dy
+
+
+def interp_linear(xi: torch.Tensor, yi: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Batched linear interpolation on the interval ``find_first_single``
+    picks, clamped to [1, n-1], so it extrapolates linearly past both ends
+    (``interp::interp_linear``, src/AtomicModel/interp.cpp:9-22)."""
+    i = find_first_single(xi, x).clamp(1, xi.shape[0] - 1)
+    x0 = xi[i - 1]
+    dx = (x - x0) / (xi[i] - x0)
+    return (1.0 - dx) * yi[i - 1] + dx * yi[i]
 
 
 def pchip_coefficients(xi, yi):

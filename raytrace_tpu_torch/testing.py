@@ -6,7 +6,9 @@ production snapshots (plasma gain column, half-plane y symmetry, optional
 separable seed). :func:`synthetic_problem` is a bit-identical copy of
 ``raytrace_tpu.testing.synthetic_problem``, so both packages see the same
 work unit for the same arguments. :func:`perturbed_problems` and the
-stream timers follow ``raytrace_tpu.testing``.
+stream timers follow ``raytrace_tpu.testing``. :func:`oracle_images` is the
+brute-force reference deposit through the scalar oracle that the tests and
+the fuzz tool (``raytrace_tpu_torch.tools.fuzz_oracle``) gate against.
 """
 
 from __future__ import annotations
@@ -16,13 +18,15 @@ import time
 import numpy as np
 
 from raytrace_tpu_torch.io.loader import load_input, scale_problem
+from raytrace_tpu_torch.ops import oracle
 from raytrace_tpu_torch.structures import (
     CreateImageProblem, EUVBeam, RayGain, RaySeed, SeedBeam,
 )
 
 __all__ = ["synthetic_problem", "perturbed_problems", "time_stream_rounds",
            "time_stream_detailed", "amplify_inputs", "source_rays",
-           "seed_factors", "deposit_inputs", "ASE_SHAPE", "SEED_SHAPE"]
+           "seed_factors", "deposit_inputs", "physical_gain", "oracle_images",
+           "ASE_SHAPE", "SEED_SHAPE"]
 
 #: ``synthetic_problem`` arguments of the two shipped shapes: the widths of
 #: ``ASE_small.dat`` (399,000 rays, nv 52, method 1) and of
@@ -207,6 +211,71 @@ def time_stream_detailed(source, n_units, rounds, make_stream, salt0=0,
             "yield_s": [b - a for a, b in zip(marks, marks[1:])],
         })
     return per_call, detail
+
+
+def physical_gain(p: CreateImageProblem) -> CreateImageProblem:
+    """Scale ``p``'s gain to the saturated X-ray-laser regime for long
+    (N > ~5) paths, in place: g0 times 0.25 in f32, a total exponent of
+    ~14 instead of ~57 (``raytrace_tpu.testing.physical_gain``, bit for
+    bit). The fuzz gates compare problems scaled in different code paths
+    and depend on the copies being bitwise identical."""
+    for g in p.gain:
+        g.g0 = (np.asarray(g.g0) * np.float32(0.25)).astype(np.float32)
+    return p
+
+
+def oracle_images(p: CreateImageProblem, method: int):
+    """Brute-force reference deposit via the scalar oracle, on the host:
+    trace every ray with ``ops.oracle.calc_ray`` and bin like the reference
+    kernel (RayTraceImageCuda.cu:84-125 semantics -- method 1 bins at entry
+    coords, method 2 at the negated exit angles with the y mirror).
+
+    Returns ``(image, i_ang)`` as float64 arrays, or ``(None, None)`` if
+    any ray hits the failure path (the caller decides whether that is a
+    skip or an assertion failure). ``raytrace_tpu.testing.oracle_images``
+    step for step, so both packages' results agree bitwise.
+    """
+    b = p.euv_beam
+    src = p.seed_beam if method == 2 else b
+    scale = 1.0 if method == 1 else (
+        (src.dx * src.dy * src.da * src.db) / (b.dx * b.dy))
+    image = np.zeros(b.nx * b.ny * b.nv)
+    i_ang = np.zeros(b.na * b.nb)
+
+    def get_index(grid, d, y):
+        if y < grid[0] - 0.5 * d or y > grid[-1] + 0.5 * d:
+            return -1
+        return oracle.find_first_single(grid, y - 0.5 * d)
+
+    for i in range(src.nx):
+        for j in range(src.ny):
+            for k in range(src.na):
+                for m in range(src.nb):
+                    ray = (np.float32(src.x[i]), np.float32(src.y[j]),
+                           np.float32(src.a[k]), np.float32(src.b[m]))
+                    res = oracle.calc_ray(
+                        ray, p.N, b.dz, p.gain,
+                        p.seed if method == 2 else None, b.nv, method)
+                    if res.error != 0:
+                        return None, None  # failure-path config
+                    if method == 1:
+                        bx, by, ba, bb_ = ray
+                    else:
+                        bx, by = res.ray_out[0], res.ray_out[1]
+                        ba, bb_ = -res.ray_out[2], -res.ray_out[3]
+                        if by < 0 and b.y[0] >= 0:
+                            by = -by
+                    i1 = get_index(b.x, b.dx, bx)
+                    i2 = get_index(b.y, b.dy, by)
+                    i3 = get_index(b.a, b.da, ba)
+                    i4 = get_index(b.b, b.db, bb_)
+                    if i1 >= 0 and i2 >= 0:
+                        base = b.nv * (i1 + i2 * b.nx)
+                        image[base:base + b.nv] += res.Iv * scale
+                    if i3 >= 0 and i4 >= 0:
+                        i_ang[i3 + i4 * b.na] += float(
+                            np.sum(2.0 * b.dv * res.Iv))
+    return image, i_ang
 
 
 def _uniform_grid(lo, hi, n):
