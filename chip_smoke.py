@@ -85,7 +85,21 @@ fails (non-zero exit, no result line) if any phase fails:
    problem (angles beyond 1.5 rad): ``create_image`` on the kernels must
    raise and dump the same rays as the twins, and the replay tool
    (``python -m raytrace_tpu_torch.tools.replay_failed_rays``) must
-   reproduce ``error -1`` for every dumped ray.
+   reproduce ``error -1`` for every dumped ray;
+10. with the counts at 0 again, the medium-scale path through the
+   benchmark (``raytrace_tpu_torch.tools.bench.run`` in this process): the
+   ASE shape at ``-scale=16`` (6,384,000 rays, 7 chunks, 3 timed calls)
+   with its stream (depth 2, 4 units, 1 round), the seeded shape at
+   ``-scale=4`` (30,663,360 rays, 30 chunks, 3 calls) and the ASE shape at
+   ``-scale=64`` (24,452,610 rays, 24 chunks, 2 calls); every gate of the
+   bench passed: both fixtures against their goldens, ``scale16`` and
+   ``seed_scale4`` against the plain twins on the card (``check_ans`` at
+   5e-6 and a relative L2 below 1e-5), every stream yield within 1e-12 of
+   its synchronous call, and ``scale64``'s peak of allocated device memory
+   at most 1.10 times ``scale16``'s; each row's s/call, rays/s, peak GiB
+   and launches per call, and the device time per kernel of one call of
+   each medium shape under the profiler; B1, B2 and B3 must have
+   launched.
 
 Prints one JSON line of per-kernel results, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. A longer record of every measurement
@@ -1169,6 +1183,72 @@ def phase_fuzz():
                           replayed_rays=dumped)
 
 
+#: phase 10's bench rows: timed calls, stream rounds, the rows held
+#: against the plain twins, and the gates that must have passed
+MEDIUM_REPS = {"scale16": 3, "seed_scale4": 3, "scale64": 2}
+MEDIUM_STREAM_ROUNDS = {"scale16_stream": 1}
+MEDIUM_TWINS = ("scale16", "seed_scale4")
+MEDIUM_GATES = ("golden_check", "scale16_cross_backend_check",
+                "seed_scale4_cross_backend_check", "scale16_stream_sync_check",
+                "scale_flat_check")
+
+
+def phase_medium():
+    """The benchmark's medium-scale rows on the card: every gate true,
+    each row's s/call, rays/s, peak device memory and launches per call."""
+    from raytrace_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    res = bench.run(device=DEV, reps=MEDIUM_REPS,
+                    stream_rounds=MEDIUM_STREAM_ROUNDS, twins=MEDIUM_TWINS,
+                    out_dir=OUT_DIR)
+    dt = time.perf_counter() - t0
+    rows = {}
+    for name in ("scale16", "scale16_stream", "seed_scale4", "scale64"):
+        p = name + "_"
+        mem = res[f"mem_after_{name}"]
+        rows[name] = dict(
+            rays=res[p + "n_rays"],
+            best_s=res[p + "best_seconds_per_call"],
+            median_s=res[p + "median_seconds_per_call"],
+            rays_per_s=res[p + "rays_per_sec"],
+            peak_gib=mem["max_memory_allocated"] / 2 ** 30,
+            launches_per_call=res[p + "launches_per_call"])
+        times = [round(c["total_s"], 5) for c in res.get(p + "calls", [])]
+        print(f"{name} ({rows[name]['rays']} rays): best "
+              f"{rows[name]['best_s']:.5f} s/call"
+              f"{f' (timed {times})' if times else ''}, "
+              f"{rows[name]['rays_per_s']:.4e} rays/s, peak device memory "
+              f"{rows[name]['peak_gib']:.3f} GiB, launches per call "
+              f"{rows[name]['launches_per_call']}", flush=True)
+    # device time per kernel at the two medium shapes, one call each
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.testing import fresh_problem, synthetic_problem
+
+    for name, shape, scale in (("scale16", bench.SHAPES[0], bench.SCALES[0]),
+                               ("seed_scale4", bench.SHAPES[1],
+                                bench.SCALES[1])):
+        p = fresh_problem(functools.partial(synthetic_problem, **shape),
+                          scale)
+        dev_ms, n_launch, per = profile_calls(
+            lambda: create_image(p, "cuda", device="cuda"), n=2)
+        print(f"{name} under the profiler: device {dev_ms:.3f} ms/call, "
+              f"{n_launch:.1f} kernel launches/call, B1 {per['trace']:.3f}, "
+              f"B2 {per['bin_deposit']:.3f}, B3 {per['amplify']:.3f} "
+              f"ms/call", flush=True)
+        rows[name].update(device_ms=dev_ms, kernel_launches=n_launch,
+                          kernel_ms=per)
+    twins = {n: res[f"{n}_twin"] for n in MEDIUM_TWINS}
+    gates = {g: res["gates"].get(g) for g in MEDIUM_GATES}
+    print(f"medium-scale gates {gates}; twins {twins}; stream against sync "
+          f"{res['scale16_stream_max_rel_vs_sync']:.3e}; scale64/scale16 "
+          f"peak {res['scale_flat_ratio']:.4f}; {dt:.1f} s", flush=True)
+    record["medium"] = dict(rows=rows, gates=res["gates"], twins=twins,
+                            seconds=dt, artifact=res)
+    if not res["gates_ok"] or not all(v is True for v in gates.values()):
+        fail(f"medium-scale path: gates {res['gates']}")
+
+
 T_START = time.perf_counter()
 
 
@@ -1226,6 +1306,8 @@ def main() -> int:
                                            path_kernels)
     _, record["fuzz_launches"] = run_path("fuzz path", phase_fuzz,
                                           path_kernels)
+    _, record["medium_launches"] = run_path("medium-scale path",
+                                            phase_medium, path_kernels)
 
     kernels = []
     for name, src, replaces in (

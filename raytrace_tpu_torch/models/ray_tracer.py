@@ -380,10 +380,9 @@ class _Call(NamedTuple):
     n_image: int
 
 
-def _upload(problem, src, dev, streams):
-    """The call's tables on ``dev`` as a dict of tensors: packed on the
-    host into one buffer, copied in one transfer (asynchronously, from
-    page-locked memory, on the upload stream when ``streams`` is given)."""
+def _pack(problem, src, dev):
+    """The call's tables packed on the host into one buffer, page-locked
+    for a CUDA ``dev``: ``(buffer, layout)`` of :func:`pack_arrays`."""
     arrays = {f"gain.{k}": v for k, v in gain_arrays(problem.gain).items()}
     arrays.update({f"beam.{k}": v
                    for k, v in beam_arrays(problem.euv_beam).items()})
@@ -393,7 +392,14 @@ def _upload(problem, src, dev, streams):
     if problem.seed is not None:
         arrays.update({f"seed.{k}": v
                        for k, v in seed_arrays(problem.seed).items()})
-    buf, layout = pack_arrays(arrays, pin=dev.type == "cuda")
+    return pack_arrays(arrays, pin=dev.type == "cuda")
+
+
+def _upload(packed, dev, streams):
+    """The call's tables on ``dev`` as a dict of tensors: :func:`_pack`'s
+    buffer copied in one transfer (asynchronously, from page-locked memory,
+    on the upload stream when ``streams`` is given)."""
+    buf, layout = packed
     if dev.type != "cuda":
         dbuf = buf.to(dev)
     elif streams is None:
@@ -447,13 +453,14 @@ class _Tables(NamedTuple):
     fv: torch.Tensor        # [K] f64 frequency profile (ones without)
 
 
-def _tables(problem, src, dev, streams=None) -> _Tables:
-    """Upload the problem's tables to ``dev`` (one transfer) and form the
-    entry seed's factor tables there. They depend on the problem alone, not
-    on its stride, so the shards of a sharded call on one device share
+def _tables(problem, src, dev, streams=None, packed=None) -> _Tables:
+    """Upload the problem's tables to ``dev`` (one transfer; ``packed``:
+    :func:`_pack`'s result, when the host packing was done apart) and form
+    the entry seed's factor tables there. They depend on the problem alone,
+    not on its stride, so the shards of a sharded call on one device share
     them."""
     K = problem.euv_beam.nv
-    t, part = _upload(problem, src, dev, streams)
+    t, part = _upload(packed or _pack(problem, src, dev), dev, streams)
     grids = [t[f"grid.{axis}"] for axis in "xyab"]
     entry_seed = None
     fv = torch.ones(K, dtype=torch.float64, device=dev)

@@ -23,7 +23,8 @@ from raytrace_tpu_torch.structures import (
     CreateImageProblem, EUVBeam, RayGain, RaySeed, SeedBeam,
 )
 
-__all__ = ["synthetic_problem", "perturbed_problems", "time_stream_rounds",
+__all__ = ["synthetic_problem", "fresh_problem", "ray_count",
+           "perturbed_problems", "time_stream_rounds",
            "time_stream_detailed", "amplify_inputs", "source_rays",
            "seed_factors", "deposit_inputs", "physical_gain", "oracle_images",
            "ASE_SHAPE", "SEED_SHAPE"]
@@ -138,6 +139,24 @@ def deposit_inputs(beam, B, seed=0, nan_share=0.01):
     return Iv, tuple(coords), ok
 
 
+def fresh_problem(source, scale=None) -> CreateImageProblem:
+    """A new work unit from ``source`` (a ``.dat`` snapshot path, or a
+    callable that returns a fresh problem), resampled by ``scale``
+    (``scale_problem``, the reference's ``-scale=``) unless it is None or
+    1."""
+    p = source() if callable(source) else load_input(source)[0]
+    if scale is not None and scale != 1.0:
+        scale_problem(p, scale)
+    return p
+
+
+def ray_count(p: CreateImageProblem) -> int:
+    """Rays of a work unit with the full stride (``N_parallel`` 1): the
+    cells of its source grid, the seed beam's when seeded."""
+    src = p.seed_beam if p.seed is not None else p.euv_beam
+    return src.nx * src.ny * src.na * src.nb
+
+
 def perturbed_problems(source, n, salt=0, scale=None):
     """``n`` fresh work units, each with its gain ``g0`` tables scaled by a
     distinct factor ``1 + 1e-5*(salt*n + i + 1)``.
@@ -150,9 +169,7 @@ def perturbed_problems(source, n, salt=0, scale=None):
     """
     probs = []
     for i in range(n):
-        p = source() if callable(source) else load_input(source)[0]
-        if scale is not None and scale != 1.0:
-            scale_problem(p, scale)
+        p = fresh_problem(source, scale)
         f = np.float32(1.0 + 1e-5 * (salt * n + i + 1))
         for g in p.gain:
             g.g0 = (np.asarray(g.g0, np.float32) * f).astype(np.float32)

@@ -1,0 +1,542 @@
+"""The port's benchmark: the rows of the root ``bench.py``, timed on one
+NVIDIA GPU, in one JSON artifact.
+
+    python -m raytrace_tpu_torch.tools.bench [--ase PATH] [--seed PATH]
+                                             [--out PATH] [--cpu]
+
+Rows, under the root bench's key names so that the two artifacts lie side
+by side:
+
+* ``ase_small_*``: 9 synchronous ``create_image`` calls of the ASE shape
+  (399,000 rays); the headline keys (``value``, ``best_seconds_per_call``,
+  ...) give its numbers under the root bench's top-level names;
+* ``ase_stream_*``: ``create_image_stream`` at depth 4, 6 units, 3 rounds;
+* ``seed_small_*`` (9 calls) and ``seed_stream_*`` (depth 2, 3 units, 2
+  rounds): the seeded shape (7,803,000 rays);
+* ``scale16_*`` (9 calls) and ``scale16_stream_*`` (depth 2, 4 units, 2
+  rounds): the ASE shape at ``-scale=16`` (6,384,000 rays), the proxy of the
+  reference's ASE_medium input (Readme.txt:47-49);
+* ``seed_scale4_*``: 5 calls of the seeded shape at ``-scale=4``
+  (30,663,360 rays), the proxy of seed_medium;
+* ``scale64_*``: 2 calls of the ASE shape at ``-scale=64`` (24,452,610
+  rays), the envelope probe.
+
+Every timed call gets a fresh work unit with distinct gain tables
+(``testing.perturbed_problems``), built before the timed region; the table
+packing, upload, kernels and readback are inside it. The ASE rows' source
+is ``synthetic_problem(**testing.ASE_SHAPE)``, the seeded rows'
+``synthetic_problem(**testing.SEED_SHAPE)`` (the shipped snapshots are not
+in the checkout), or the snapshot that ``--ase`` / ``--seed`` names.
+
+Each synchronous row records its rays, the best, median, average and
+standard deviation of s/call, the reference's stability booleans (recorded,
+not gates), every call's stage split, the launches per call of B1, B2 and
+B3 (their wrappers' ``launch_count``), and ``mem_after_<row>``: the peak of
+allocated bytes since the row began (``max_memory_allocated`` after
+``reset_peak_memory_stats``), the reserved bytes and the card's total, or
+``{"unavailable": "cpu"}`` on the CPU. Stream rows record the same memory
+and launches, and per round ``fill_s`` (first yield) and ``yield_s``
+(spacing of the later yields), as ``testing.time_stream_detailed`` gives
+them, with steady statistics over the pooled ``yield_s``.
+
+Stage split of a synchronous call, from consecutive ``perf_counter`` marks
+(disjoint stages that add up to ``total_s``): ``prep_s``, the limits and
+grid checks and the host packing of the tables (``_validate``, ``_pack``);
+on ASE rows ``dispatch_s``, the upload and every chunk's launches
+(``_tables``, ``_dispatch``; the host waits only where the launch queue is
+full); on seeded rows ``upload_s``, ``_tables`` and a synchronise (the copy
+and the entry seed's tables), then ``dispatch_s``, ``_dispatch`` on those
+tables; ``wait_s``, ``_finalize``: the wait for the kernels and the one
+readback.
+
+Gates, each a field, listed in ``gates``; any that fails makes the exit
+code 1:
+
+* ``golden_check``: ``check_ans`` at 5e-6 and a two-sided relative L2
+  below 1e-5 against the embedded golden of both fixtures in
+  ``tests/fixtures/`` and of the ``--ase`` / ``--seed`` snapshots;
+* ``<row>_cross_backend_check``, on every timed shape: the kernels' image
+  and I_ang against the plain twins' on the same device in 2^20-ray chunks,
+  ``check_ans`` at 5e-6 with the twins as golden and a relative L2 below
+  1e-5;
+* ``<stream row>_sync_check``: every yield within a relative L2 of 1e-12
+  of the synchronous call on the same unit;
+* ``scale_flat_check``: the ``scale64`` row's peak of allocated bytes at
+  most 1.10 times the ``scale16`` row's (the chunked design's claim that
+  device memory does not grow with the ray count).
+
+The full artifact goes to ``--out`` (by default ``bench_torch.json`` in
+the checkout's output directory) and to stdout as one line; the last stdout line is a compact
+summary: the headline keys, the card's name and power limit, the commit,
+the torch and CUDA versions and the chunk size.
+
+Without a CUDA device the tool exits non-zero unless ``--cpu`` asks for the
+CPU (the plain twins). A row that raises ends the run. Tests and
+``chip_smoke.py`` call :func:`run`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raytrace_tpu_torch.io.loader import load_input
+from raytrace_tpu_torch.models import ray_tracer
+from raytrace_tpu_torch.models.ray_tracer import (DEFAULT_CHUNK, create_image,
+                                                  create_image_stream)
+from raytrace_tpu_torch.ops import amplify_kernel, deposit_kernel, trace_kernel
+from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE, fresh_problem,
+                                        perturbed_problems, ray_count,
+                                        synthetic_problem,
+                                        time_stream_detailed)
+from raytrace_tpu_torch.utils.stats import TimingStats, check_ans, stability_ok
+
+__all__ = ["run", "main", "summary"]
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+DEFAULT_OUT = os.path.join(ROOT, "chiprun_out", "bench_torch.json")
+
+#: the sources' ``synthetic_problem`` shapes: (ASE, seeded)
+SHAPES = (ASE_SHAPE, SEED_SHAPE)
+#: ``-scale=`` of the ``scale16``, ``seed_scale4`` and ``scale64`` rows
+SCALES = (16.0, 4.0, 64.0)
+#: timed calls of each synchronous row (the root bench's)
+REPS = {"ase_small": 9, "seed_small": 9, "scale16": 9, "seed_scale4": 5,
+        "scale64": 2}
+#: rounds of each stream row (the root bench's)
+STREAM_ROUNDS = {"ase_stream": 3, "seed_stream": 2, "scale16_stream": 2}
+#: the synchronous rows whose result is held against the plain twins
+TWINS = tuple(REPS)
+
+#: synchronous rows: (seeded source, index into the scales or None, salt)
+_ROWS = {"ase_small": (False, None, 17), "seed_small": (True, None, 23),
+         "scale16": (False, 0, 31), "seed_scale4": (True, 1, 41),
+         "scale64": (False, 2, 53)}
+#: stream rows: (the synchronous row whose source they stream, units, depth)
+_STREAMS = {"ase_stream": ("ase_small", 6, 4),
+            "seed_stream": ("seed_small", 3, 2),
+            "scale16_stream": ("scale16", 4, 2)}
+_ORDER = ("ase_small", "ase_stream", "seed_small", "seed_stream", "scale16",
+          "scale16_stream", "seed_scale4", "scale64")
+
+#: the kernels' wrappers, whose launch counts each row reads
+_WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
+             "amplify": amplify_kernel}
+
+GOLDEN_REL = 1e-5      # two-sided relative L2: goldens and twins
+STREAM_REL = 1e-12     # stream yields against the synchronous call
+SCALE_FLAT = 1.10      # scale64's peak allocated bytes over scale16's
+TWIN_CHUNK = 1 << 20   # the kernels' chunk, for the twins on the card
+
+#: the last line's keys beside the headline
+SUMMARY_KEYS = (
+    "ase_stream_steady_best_s", "ase_stream_steady_stability_ok",
+    "seed_small_best_seconds_per_call", "seed_small_stability_ok",
+    "seed_small_golden_check", "seed_stream_steady_best_s",
+    "scale16_best_seconds_per_call", "scale16_stability_ok",
+    "scale16_cross_backend_check", "scale16_stream_steady_best_s",
+    "seed_scale4_best_seconds_per_call", "seed_scale4_cross_backend_check",
+    "scale64_best_seconds_per_call", "scale_flat_check", "scale_flat_ratio")
+
+SCHEMA = ("sync *_calls: disjoint wall intervals, total=prep+dispatch+wait "
+          "(+upload on seeded rows); prep=_validate+_pack (host), dispatch="
+          "upload+launches (ASE) or launches (seeded), upload=_tables+"
+          "synchronise, wait=_finalize (kernels+readback). stream *_rounds: "
+          "fill=first-yield latency, yield_s=steady spacing, round_wall="
+          "fill+sum(yield_s); steady stats pool yield_s. Stability booleans "
+          "(std<=10%avg and max<=avg+15%, CreateImage.cpp:174-181) are "
+          "recorded, not gates. mem_after_<row>: peak since the row began. "
+          "Gates: see gates; details in raytrace_tpu_torch/tools/bench.py.")
+
+
+class _Ctx(NamedTuple):
+    dev: torch.device
+    method: str          # "cuda" (the kernels) or "cpu" (the plain twins)
+    failed_ray_path: str
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def _memory(dev) -> dict:
+    """Peak allocated bytes since the last reset, reserved bytes and the
+    card's total; explicit where the device keeps no statistics."""
+    if dev.type != "cuda":
+        return {"unavailable": dev.type}
+    return {"max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "memory_reserved": torch.cuda.memory_reserved(dev),
+            "total": torch.cuda.mem_get_info(dev)[1]}
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _launch_counts() -> dict:
+    return {n: w.launch_count for n, w in _WRAPPERS.items()}
+
+
+def _per_call(before: dict, n: int) -> dict:
+    return {k: (v - before[k]) / n for k, v in _launch_counts().items()}
+
+
+def _timed_call(ctx: _Ctx, p, split_upload: bool) -> dict:
+    """One synchronous call through the call path's own stages (what
+    ``create_image`` runs), with the stage split."""
+    dev = ctx.dev
+    t0 = time.perf_counter()
+    src = ray_tracer._validate(p)[1]
+    packed = ray_tracer._pack(p, src, dev)
+    t1 = time.perf_counter()
+    tables = ray_tracer._tables(p, src, dev, packed=packed)
+    if split_upload:
+        _sync(dev)
+    t2 = time.perf_counter()
+    call = ray_tracer._dispatch(p, ctx.method, dev, None, 0.5, tables=tables)
+    t3 = time.perf_counter()
+    ray_tracer._finalize(call, ctx.failed_ray_path)
+    t4 = time.perf_counter()
+    c = {"total_s": t4 - t0, "prep_s": t1 - t0, "wait_s": t4 - t3}
+    if split_upload:
+        c.update(upload_s=t2 - t1, dispatch_s=t3 - t2)
+    else:
+        c["dispatch_s"] = t3 - t1
+    return c
+
+
+def _row_stats(prefix: str, totals, n_rays: int) -> dict:
+    stats = TimingStats.of(totals)
+    best = min(totals)
+    return {f"{prefix}n_rays": n_rays,
+            f"{prefix}rays_per_sec": n_rays / best,
+            f"{prefix}best_seconds_per_call": best,
+            f"{prefix}median_seconds_per_call":
+                sorted(totals)[len(totals) // 2],
+            f"{prefix}avg_seconds_per_call": stats.avg,
+            f"{prefix}std_seconds_per_call": stats.std,
+            f"{prefix}stability_ok": bool(stability_ok(stats))}
+
+
+def _twin(ctx: _Ctx, source, scale):
+    """The plain twins' ``(image, I_ang)`` of a fresh unit on the bench's
+    device, in the kernels' chunks, and the seconds the call took."""
+    p = fresh_problem(source, scale)
+    t0 = time.perf_counter()
+    out = create_image(p, "cpu", device=ctx.dev, chunk_size=TWIN_CHUNK,
+                       failed_ray_path=ctx.failed_ray_path)
+    return out, time.perf_counter() - t0
+
+
+def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
+              twin: bool) -> dict:
+    """A synchronous row: one warmup call on the unperturbed unit (the
+    result the twins are held against), then ``n`` timed calls."""
+    prefix = name + "_"
+    _reset_peak(ctx.dev)
+    pristine = fresh_problem(source, scale)
+    t0 = time.perf_counter()
+    got = create_image(pristine, ctx.method, device=ctx.dev,
+                       failed_ray_path=ctx.failed_ray_path)
+    warmup_s = time.perf_counter() - t0
+    probs = perturbed_problems(source, n, salt=salt, scale=scale)
+    before = _launch_counts()
+    calls = [_timed_call(ctx, p, pristine.seed is not None) for p in probs]
+    row = _row_stats(prefix, [c["total_s"] for c in calls],
+                     ray_count(pristine))
+    row.update({f"{prefix}calls": calls, f"{prefix}warmup_s": warmup_s,
+                f"{prefix}launches_per_call": _per_call(before, n),
+                f"mem_after_{name}": _memory(ctx.dev)})
+    check = None
+    if twin:
+        want, twin_s = _twin(ctx, source, scale)
+        r_img, r_ang = _rel(got[0], want[0]), _rel(got[1], want[1])
+        check = bool(check_ans(want[0], want[1], *got, verbose=False)
+                     and r_img < GOLDEN_REL and r_ang < GOLDEN_REL)
+        row[f"{prefix}twin"] = {"rel_image": r_img, "rel_iang": r_ang,
+                                "twin_s": twin_s}
+    row[f"{prefix}cross_backend_check"] = check
+    return row
+
+
+def _rtt_probe(dev) -> dict:
+    """Round trip of one tiny launch and its ``.item()``: the fixed cost
+    of a call's wait."""
+    x = torch.zeros((), device=dev)
+    (x + 1).item()
+    ts = []
+    for i in range(7):
+        t0 = time.perf_counter()
+        (x + i).item()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return {"rtt_probe_s": ts[0], "rtt_probe_median_s": ts[len(ts) // 2]}
+
+
+def _readback_probe(dev) -> dict:
+    """A [1500, 52] f64 result read back through the call path's
+    ``_readback`` (the ASE image's size), five times."""
+    bufs = [torch.full((1500, 52), 1.0 + i, dtype=torch.float64, device=dev)
+            for i in range(5)]
+    _sync(dev)
+    ts = []
+    for b in bufs:
+        t0 = time.perf_counter()
+        _host, done = ray_tracer._readback(b, dev, None)
+        if done is not None:
+            done.synchronize()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return {"readback_probe_s": ts[0],
+            "readback_probe_median_s": ts[len(ts) // 2]}
+
+
+def _stream_row(ctx: _Ctx, name: str, source, scale, n_units: int,
+                depth: int, rounds: int) -> dict:
+    """A stream row over fresh distinct-table units; afterwards every
+    yield is held against the synchronous call on its unit."""
+    prefix = name + "_"
+    _reset_peak(ctx.dev)
+    stream = functools.partial(create_image_stream, compute_method=ctx.method,
+                               device=ctx.dev, depth=depth,
+                               failed_ray_path=ctx.failed_ray_path)
+    for _ in stream(perturbed_problems(source, 2, salt=99, scale=scale)):
+        pass  # warmup: the stream's side streams and their memory pools
+    seen = []
+
+    def make_stream(units):
+        outs = []
+        seen.append((units, outs))
+        for out in stream(units):
+            outs.append(out)
+            yield out
+
+    before = _launch_counts()
+    per_call, detail = time_stream_detailed(source, n_units, rounds,
+                                            make_stream, scale=scale)
+    launches = _per_call(before, n_units * rounds)
+    mem = _memory(ctx.dev)
+    n_rays = ray_count(seen[0][0][0])
+    yields = [y for d in detail for y in d["yield_s"]]
+    row = {f"{prefix}n_rays": n_rays,
+           f"{prefix}rays_per_sec": n_rays / min(per_call),
+           f"{prefix}best_seconds_per_call": min(per_call),
+           f"{prefix}median_seconds_per_call":
+               sorted(per_call)[len(per_call) // 2],
+           f"{prefix}rounds": detail,
+           f"{prefix}launches_per_call": launches,
+           f"mem_after_{name}": mem}
+    if yields:
+        ys = TimingStats.of(yields)
+        row.update({f"{prefix}steady_best_s": min(yields),
+                    f"{prefix}steady_median_s":
+                        sorted(yields)[len(yields) // 2],
+                    f"{prefix}steady_avg_s": ys.avg,
+                    f"{prefix}steady_std_s": ys.std,
+                    f"{prefix}steady_stability_ok": bool(stability_ok(ys)),
+                    f"{prefix}steady_rays_per_sec": n_rays / min(yields)})
+    worst = 0.0
+    for units, outs in seen:
+        if len(outs) != len(units):
+            raise RuntimeError(f"{name}: {len(outs)} yields for "
+                               f"{len(units)} units")
+        for u, (image, i_ang) in zip(units, outs):
+            want = create_image(u, ctx.method, device=ctx.dev,
+                                failed_ray_path=ctx.failed_ray_path)
+            worst = max(worst, _rel(image, want[0]), _rel(i_ang, want[1]))
+    row[f"{prefix}max_rel_vs_sync"] = worst
+    row[f"{prefix}sync_check"] = worst <= STREAM_REL
+    row.update({prefix + k: v for k, v in _rtt_probe(ctx.dev).items()})
+    return row
+
+
+def _golden(ctx: _Ctx, path: str) -> dict:
+    """The call against a snapshot's embedded golden."""
+    p, image0, i_ang0 = load_input(path)
+    if image0 is None or len(image0) == 0:
+        return {"ok": None, "unavailable": "no embedded golden"}
+    image, i_ang = create_image(p, ctx.method, device=ctx.dev,
+                                failed_ray_path=ctx.failed_ray_path)
+    r_img, r_ang = _rel(image, image0), _rel(i_ang, i_ang0)
+    ok = (check_ans(image0, i_ang0, image, i_ang, verbose=False)
+          and r_img < GOLDEN_REL and r_ang < GOLDEN_REL)
+    return {"ok": bool(ok), "rel_image": r_img, "rel_iang": r_ang}
+
+
+def _git_commit() -> str:
+    try:
+        r = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True,
+                           text=True, cwd=ROOT, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return "unknown"
+    return r.stdout.strip() or "unknown"
+
+
+def _card_line(dev):
+    """The card's name and power limit as nvidia-smi reports them (None on
+    the CPU)."""
+    if dev.type != "cuda":
+        return None
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def _log(msg: str) -> None:
+    print(f"bench: {msg}", file=sys.stderr, flush=True)
+
+
+def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
+        stream_rounds=STREAM_ROUNDS, twins=TWINS, ase=None, seed=None,
+        out_dir=os.path.dirname(DEFAULT_OUT)) -> dict:
+    """Run the bench's rows on ``device``; returns the artifact.
+
+    ``shapes``: the ASE and seeded ``synthetic_problem`` shapes;
+    ``scales``: ``-scale=`` of the ``scale16``, ``seed_scale4`` and
+    ``scale64`` rows; ``reps`` / ``stream_rounds``: timed calls / rounds of
+    each row, a row left out is not run; ``twins``: the synchronous rows
+    held against the plain twins; ``ase`` / ``seed``: snapshot paths that
+    replace the synthetic sources; ``out_dir``: where a failing call's
+    failed-ray dump goes. Raises whatever a row raises.
+    """
+    dev = torch.device(device)
+    ctx = _Ctx(dev, "cuda" if dev.type == "cuda" else "cpu",
+               os.path.join(out_dir, "bench_failed_rays.dat"))
+    os.makedirs(out_dir, exist_ok=True)
+    sources = (ase or functools.partial(synthetic_problem, **shapes[0]),
+               seed or functools.partial(synthetic_problem, **shapes[1]))
+    res = {"method": ctx.method,
+           "platform": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"),
+           "schema": SCHEMA,
+           "provenance": {
+               "git_commit": _git_commit(), "card": _card_line(dev),
+               "torch": torch.__version__, "cuda": torch.version.cuda,
+               "chunk_size": DEFAULT_CHUNK[ctx.method],
+               "shapes": list(shapes), "scales": list(scales),
+               "sources": [s if isinstance(s, str) else "synthetic"
+                           for s in sources],
+               "utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())}}
+
+    goldens = {name: _golden(ctx, os.path.join(FIXTURES, name))
+               for name in ("golden_ase.dat", "golden_seed.dat")}
+    for path in (ase, seed):
+        if path:
+            goldens[path] = _golden(ctx, path)
+    res["golden_checks"] = goldens
+    res["golden_check"] = all(g["ok"] is not False for g in goldens.values())
+    res["seed_small_golden_check"] = all(
+        g["ok"] is not False for k, g in goldens.items()
+        if k in ("golden_seed.dat", seed))
+    _log(f"golden checks {goldens}")
+    res.update(_rtt_probe(dev))
+    res.update(_readback_probe(dev))
+
+    for name in _ORDER:
+        if name in _ROWS and name in reps:
+            seeded, si, salt = _ROWS[name]
+            res.update(_sync_row(ctx, name, sources[seeded],
+                                 None if si is None else scales[si],
+                                 reps[name], salt, name in twins))
+            _log(f"{name}: {res[f'{name}_n_rays']} rays, best "
+                 f"{res[f'{name}_best_seconds_per_call']} s/call, twins "
+                 f"{res[f'{name}_cross_backend_check']}, "
+                 f"{res[f'mem_after_{name}']}")
+        elif name in _STREAMS and name in stream_rounds:
+            parent, units, depth = _STREAMS[name]
+            seeded, si, _ = _ROWS[parent]
+            res.update(_stream_row(ctx, name, sources[seeded],
+                                   None if si is None else scales[si],
+                                   units, depth, stream_rounds[name]))
+            _log(f"{name}: best {res[f'{name}_best_seconds_per_call']} "
+                 f"s/call, against sync {res[f'{name}_max_rel_vs_sync']}")
+
+    if "ase_small_best_seconds_per_call" in res:
+        res.update({"metric": "ase_small_rays_per_sec",
+                    "value": res["ase_small_rays_per_sec"], "unit": "rays/s"})
+        res.update({k: res["ase_small_" + k] for k in (
+            "best_seconds_per_call", "median_seconds_per_call",
+            "avg_seconds_per_call", "std_seconds_per_call", "stability_ok")})
+
+    flat, ratio = None, None
+    mems = [res.get(f"mem_after_{r}", {}).get("max_memory_allocated")
+            for r in ("scale16", "scale64")]
+    if None not in mems:
+        ratio = mems[1] / mems[0]
+        flat = ratio <= SCALE_FLAT
+    res["scale_flat_ratio"], res["scale_flat_check"] = ratio, flat
+
+    gates = {"golden_check": res["golden_check"],
+             "scale_flat_check": flat}
+    gates.update({k: v for k, v in res.items()
+                  if k.endswith(("_cross_backend_check", "_sync_check"))})
+    res["gates"] = gates
+    res["gates_not_evaluated"] = sorted(k for k, v in gates.items()
+                                        if v is None)
+    res["gates_ok"] = all(v is not False for v in gates.values())
+    return res
+
+
+def summary(res: dict) -> dict:
+    """The artifact's compact last line."""
+    prov = res["provenance"]
+    s = {k: res[k] for k in ("metric", "value", "unit",
+                             "best_seconds_per_call", "stability_ok",
+                             "golden_check", "gates_ok", "method",
+                             "platform") if k in res}
+    s.update(card=prov["card"], git_commit=prov["git_commit"][:12],
+             torch=prov["torch"], cuda=prov["cuda"],
+             chunk_size=prov["chunk_size"])
+    s.update({k: res[k] for k in SUMMARY_KEYS if k in res})
+    return s
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m raytrace_tpu_torch.tools.bench",
+        description="Time the port's rows of the root bench.py on the card.")
+    ap.add_argument("--ase", help="ASE snapshot (.dat) in place of the "
+                    "synthetic ASE shape")
+    ap.add_argument("--seed", help="seeded snapshot (.dat) in place of the "
+                    "synthetic seeded shape")
+    ap.add_argument("--out", default=DEFAULT_OUT,
+                    help="the full artifact's path (default: %(default)s)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the plain twins on the CPU")
+    args = ap.parse_args(argv)
+    if not args.cpu and not torch.cuda.is_available():
+        raise SystemExit("bench: no CUDA device (--cpu runs the plain twins "
+                         "on the CPU)")
+    res = run("cpu" if args.cpu else "cuda", shapes=SHAPES, scales=SCALES,
+              reps=REPS, stream_rounds=STREAM_ROUNDS, twins=TWINS,
+              ase=args.ase, seed=args.seed,
+              out_dir=os.path.dirname(os.path.abspath(args.out)))
+    full = json.dumps(res)
+    with open(args.out, "w") as f:
+        f.write(full + "\n")
+    print(full)
+    print(json.dumps(summary(res)), flush=True)
+    return 0 if res["gates_ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,169 @@
+"""The port's benchmark (``raytrace_tpu_torch.tools.bench``) on the CPU at
+tiny shapes: every row of the root ``bench.py`` under its key names, explicit
+memory records, stage splits that add up to each call's total, the summary
+line, no fallback to the CPU without ``--cpu``, and failed gates and rows in
+the exit code."""
+
+import json
+
+import pytest
+import torch
+
+from raytrace_tpu_torch.tools import bench
+
+torch.set_num_threads(2)
+
+TINY = dict(nx=8, ny=5, na=5, nb=4, nv=6)
+SHAPES = (TINY, dict(TINY, seeded=True))
+SCALES = (2.0, 2.0, 4.0)
+
+#: the root bench.py's keys of each kind of row; ``vs_baseline`` is left
+#: out: its baseline is the reference binary on another host's CPU
+SYNC_KEYS = ("rays_per_sec", "best_seconds_per_call",
+             "median_seconds_per_call", "avg_seconds_per_call",
+             "std_seconds_per_call", "stability_ok", "calls")
+STREAM_KEYS = ("rays_per_sec", "best_seconds_per_call",
+               "median_seconds_per_call", "rounds", "steady_best_s",
+               "steady_median_s", "steady_avg_s", "steady_std_s",
+               "steady_stability_ok", "steady_rays_per_sec", "rtt_probe_s",
+               "rtt_probe_median_s")
+ROW_EXTRA = {"seed_small": ("golden_check",),
+             "scale16": ("n_rays", "cross_backend_check"),
+             "seed_scale4": ("n_rays", "cross_backend_check"),
+             "scale64": ("n_rays",)}
+HEADLINE = ("metric", "value", "unit", "best_seconds_per_call",
+            "median_seconds_per_call", "avg_seconds_per_call",
+            "std_seconds_per_call", "stability_ok", "golden_check", "method",
+            "platform", "schema", "provenance", "rtt_probe_s",
+            "rtt_probe_median_s", "readback_probe_s",
+            "readback_probe_median_s")
+SYNC_ROWS = ("ase_small", "seed_small", "scale16", "seed_scale4", "scale64")
+STREAM_ROWS = ("ase_stream", "seed_stream", "scale16_stream")
+
+
+def _tiny(monkeypatch, reps, rounds):
+    """Point main() at the tiny shapes and the given rows."""
+    monkeypatch.setattr(bench, "SHAPES", SHAPES)
+    monkeypatch.setattr(bench, "SCALES", SCALES)
+    monkeypatch.setattr(bench, "REPS", reps)
+    monkeypatch.setattr(bench, "STREAM_ROUNDS", rounds)
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    return bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                     reps={k: 2 for k in bench.REPS},
+                     stream_rounds={k: 1 for k in bench.STREAM_ROUNDS},
+                     out_dir=str(tmp_path_factory.mktemp("bench")))
+
+
+@pytest.mark.parametrize("row", SYNC_ROWS + STREAM_ROWS)
+def test_row_keys_of_the_root_bench(artifact, row):
+    keys = SYNC_KEYS if row in SYNC_ROWS else STREAM_KEYS
+    for k in keys + ROW_EXTRA.get(row, ()):
+        assert f"{row}_{k}" in artifact, f"{row}_{k}"
+    # the port's own: memory, explicit on the CPU, and launches per call
+    assert artifact[f"mem_after_{row}"] == {"unavailable": "cpu"}
+    assert set(artifact[f"{row}_launches_per_call"]) == {
+        "trace", "bin_deposit", "amplify"}
+
+
+def test_headline_and_gates(artifact):
+    for k in HEADLINE:
+        assert k in artifact, k
+    assert artifact["value"] == artifact["ase_small_rays_per_sec"]
+    assert artifact["golden_check"] and artifact["gates_ok"]
+    assert set(artifact["golden_checks"]) == {"golden_ase.dat",
+                                              "golden_seed.dat"}
+    # the scale-flat gate needs device memory statistics: not evaluated
+    assert artifact["scale_flat_check"] is None
+    assert artifact["gates_not_evaluated"] == ["scale_flat_check"]
+    for row in SYNC_ROWS:
+        assert artifact["gates"][f"{row}_cross_backend_check"] is True
+    for row in STREAM_ROWS:
+        assert artifact["gates"][f"{row}_sync_check"] is True
+        assert artifact[f"{row}_max_rel_vs_sync"] <= 1e-12
+    # the scaled rows' ray counts follow scale_problem
+    assert artifact["scale64_n_rays"] > artifact["scale16_n_rays"] > 0
+
+
+@pytest.mark.parametrize("row", SYNC_ROWS)
+def test_stage_split_adds_up(artifact, row):
+    seeded = row.startswith("seed")
+    calls = artifact[f"{row}_calls"]
+    assert len(calls) == 2
+    for c in calls:
+        stages = ("prep_s", "dispatch_s", "wait_s") + (
+            ("upload_s",) if seeded else ())
+        assert set(c) == {"total_s", *stages}
+        assert min(c[s] for s in stages) >= 0.0
+        assert sum(c[s] for s in stages) == pytest.approx(c["total_s"],
+                                                          rel=1e-9)
+
+
+def test_main_last_line(monkeypatch, capsys, tmp_path):
+    _tiny(monkeypatch, {"ase_small": 2, "seed_small": 1}, {})
+    out = tmp_path / "bench_torch.json"
+    assert bench.main(["--cpu", "--out", str(out)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-2]) == json.loads(out.read_text())
+    last = json.loads(lines[-1])
+    for k in ("metric", "value", "unit", "best_seconds_per_call",
+              "stability_ok", "golden_check", "gates_ok", "method",
+              "platform", "card", "git_commit", "torch", "cuda",
+              "chunk_size", "seed_small_best_seconds_per_call"):
+        assert k in last, k
+    assert last["platform"] == "cpu" and last["gates_ok"] is True
+
+
+def test_main_without_a_card_exits_nonzero(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def never(*a, **kw):
+        raise AssertionError("ran without a card")
+
+    monkeypatch.setattr(bench, "run", never)
+    with pytest.raises(SystemExit) as e:
+        bench.main([])
+    assert e.value.code not in (0, None)
+
+
+def test_failed_twin_gate_sets_the_exit_code(monkeypatch, tmp_path):
+    _tiny(monkeypatch, {"ase_small": 1}, {})
+    twin = bench._twin
+
+    def differing_twin(ctx, source, scale):
+        (image, i_ang), dt = twin(ctx, source, scale)
+        return (image * 1.01, i_ang), dt
+
+    monkeypatch.setattr(bench, "_twin", differing_twin)
+    out = tmp_path / "bench_torch.json"
+    assert bench.main(["--cpu", "--out", str(out)]) == 1
+    res = json.loads(out.read_text())
+    assert res["ase_small_cross_backend_check"] is False
+    assert res["gates_ok"] is False
+
+
+@pytest.mark.parametrize("peaks, flat", [((100, 110), True),
+                                         ((100, 111), False)])
+def test_scale_flat_gate(monkeypatch, tmp_path, peaks, flat):
+    it = iter(peaks)
+    monkeypatch.setattr(bench, "_memory", lambda dev: {
+        "max_memory_allocated": next(it)})
+    res = bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                    reps={"scale16": 1, "scale64": 1}, stream_rounds={},
+                    twins=(), out_dir=str(tmp_path))
+    assert res["scale_flat_ratio"] == pytest.approx(peaks[1] / peaks[0])
+    assert res["scale_flat_check"] is flat and res["gates_ok"] is flat
+    assert res["scale16_cross_backend_check"] is None
+
+
+def test_a_row_that_raises_fails_the_run(monkeypatch, tmp_path):
+    def broken(*a, **kw):
+        raise RuntimeError("row failed")
+
+    monkeypatch.setattr(bench, "_timed_call", broken)
+    with pytest.raises(RuntimeError, match="row failed"):
+        bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                  reps={"ase_small": 1}, stream_rounds={},
+                  out_dir=str(tmp_path))
