@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (and, where a
+host has several, on all of them).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 1-10, and 11 on 2+ cards
+    python3 chip_smoke.py --multicard  # the build and phase 11 alone
 
 Drives ``raytrace_tpu_torch``'s ``create_image`` main path, its
 ``create_image_stream`` serving path and its gather probe on the card, and
@@ -64,14 +66,15 @@ fails (non-zero exit, no result line) if any phase fails:
    not count, and each sharded call and stream must itself launch B1 and
    B2, and B3 on a seeded problem. Then, as subprocesses with their own
    time limits: the CLI with ``-methods=cuda -nprocs=2 -iterations=3``
-   (two ranks on the card, joined by gloo; each rank's s/call) on both
+   (on one card two ranks share it, joined by gloo; each rank's s/call) on both
    fixtures and on both shipped shapes, saved under ``build/`` with the
    single call's result as their golden: every golden check passed, and
    an exit code that is exactly the number of the reference's
    timing-stability gate errors the ranks printed (two ranks time-slicing
    the card trip them in about half the runs, on either kind of input);
    and ``raytrace_tpu_torch/tools/production_loop.py`` with 1 and with 2
-   ranks, every rank on cuda:0 (E_sum within 1e-10 relative);
+   ranks, each rank on ``cuda:(rank % cards)`` (E_sum within 1e-10
+   relative);
 9. with the counts at 0 again, the fuzz path: the fuzz tool's ``run_case``
    (``raytrace_tpu_torch.tools.fuzz_oracle``) on the card with its sharded
    and stream arms, over its curated cases, 24 random ones from seed 0,
@@ -99,11 +102,34 @@ fails (non-zero exit, no result line) if any phase fails:
    at most 1.10 times ``scale16``'s; each row's s/call, rays/s, peak GiB
    and launches per call, and the device time per kernel of one call of
    each medium shape under the profiler; B1, B2 and B3 must have
-   launched.
+   launched;
+11. with the counts at 0 again, on two or more cards, the multi-card path
+   on ``make_mesh()`` (one entry a card; on one card the run prints one
+   line saying so instead): every card's nvidia-smi line, peer access
+   and ``nvidia-smi topo -m``; with ``cuda:0`` current, B1, B3 and B2's
+   bins on 65,536 seeded rays on each other card bitwise equal to
+   cuda:0's, and single calls on each card (both fixtures, both shipped
+   shapes) within 1e-12 of cuda:0's (two calls on one card differ at about
+   1e-16: B2's f64 atomics), cuda:0 still current; both fixtures sharded
+   on the cards against their goldens; the bench's ``ase_small``,
+   ``seed_small``, ``scale64`` and ``seed_scale4`` on one card and on the
+   cards (``tools/bench.run`` with ``mesh``): every gate, each within
+   1e-12 of the 1-card call, the s/call and the ratio, each card's peak
+   memory, first and last marks and the reduction's device time; the
+   mesh stream at depth 2 within 1e-12 of the sharded call; the device
+   time per kernel of each shipped shape on one card and on the cards;
+   then as subprocesses the CLI's ``-multichip``, its group of one rank per
+   card (``-nprocs``, the backend ``distributed.backend_for`` gives, gloo
+   and NCCL) on both fixtures and both shipped shapes, the rank harness
+   ``tools/run_distributed.py`` and the production loop on one rank per
+   card against one rank. Every card must launch B1 and B2, and B3 on a
+   seeded call, by the wrappers' per-device counts.
 
-Prints one JSON line of per-kernel results, the card line, and as its last
-line ``{"ok": true, "device": {...}}``. A longer record of every measurement
-goes to ``chiprun_out/chip_smoke.json``. Needs no network; uses one card.
+Prints one JSON line of per-kernel results, every card's line, and as its
+last line ``{"ok": true, "device": {...}}``; ``--multicard`` prints no
+kernel line. A longer record of every measurement goes to
+``chiprun_out/chip_smoke.json`` (``chip_smoke_multicard.json``). Needs no
+network; uses one card, or every card of the host for phase 11.
 """
 
 import functools
@@ -811,35 +837,53 @@ def run_children(argvs, timeout, what, gate_errors_ok=False):
     return [(out, p.returncode) for out, p in zip(outs, procs)]
 
 
-def production_loops():
-    """E_sum per step of the production loop tool with 1 rank and, at the
-    same time, with 2 ranks on the card (rank 0's lines)."""
-    import re
+def free_port() -> str:
     import socket
 
-    tool = os.path.join("raytrace_tpu_torch", "tools", "production_loop.py")
     s = socket.socket()
     s.bind(("localhost", 0))
     port = str(s.getsockname()[1])
     s.close()
+    return port
+
+
+def rank_tool(tool, nprocs):
+    """The argvs of ``nprocs`` ranks of a rank tool (``<pid> <nprocs>
+    <port>``) under ``raytrace_tpu_torch/tools``."""
+    path = os.path.join("raytrace_tpu_torch", "tools", tool)
+    port = free_port()
+    return [[sys.executable, path, str(pid), str(nprocs), port]
+            for pid in range(nprocs)]
+
+
+def production_loops(nprocs=2, extra=()):
+    """E_sum per step of the production loop tool with 1 rank and, at the
+    same time, with ``nprocs`` ranks on the cards (rank 0's lines), each
+    rank on ``cuda:(rank % cards)``; ``extra`` argvs run beside them.
+    Returns the E_sums and the ranks' outputs."""
+    import re
+
+    tool = os.path.join("raytrace_tpu_torch", "tools", "production_loop.py")
     outs = run_children([[sys.executable, tool]]
-                        + [[sys.executable, tool, str(pid), "2", port]
-                           for pid in range(2)], 300,
-                        "production loop, 1 rank and 2 ranks")
+                        + rank_tool("production_loop.py", nprocs)
+                        + list(extra), 300,
+                        f"production loop, 1 rank and {nprocs} ranks")
+    count = torch.cuda.device_count()
     esums = []
-    for (out, _rc), ranks in zip(outs[:2], (1, 2)):
+    for (out, _rc), ranks in zip(outs[:2], (1, nprocs)):
         esum = [float(m) for m in re.findall(r"E_sum=([0-9.e+-]+)", out)]
         if len(esum) != 2 or not all(np.isfinite(esum)) or min(esum) <= 0:
             fail(f"production loop: E_sum {esum}")
-        # every rank on the card, and every step computed there
-        on_card = ("rank devices: " + " ".join(["cuda:0"] * ranks) in out
+        # every rank on its card, and every step computed there
+        cards = " ".join(f"cuda:{r % count}" for r in range(ranks))
+        on_card = ("rank devices: " + cards in out
                    and out.count(f"(ranks={ranks}, cuda:0)") == 2)
         if not on_card:
             print(out[-4000:], flush=True)
             fail(f"production loop, {ranks} rank(s): not every rank on "
-                 f"cuda:0")
+                 f"its card ({cards})")
         esums.append(esum)
-    return esums
+    return esums, outs
 
 
 def profile_calls(fn, n=3):
@@ -862,15 +906,18 @@ def profile_calls(fn, n=3):
 
 
 def uncounted(fn, *args, **kw):
-    """``fn(*args, **kw)`` with every kernel's launch count left as it was:
-    a call made as a reference or a yardstick does not count for the path
-    being driven."""
-    before = {n: w.launch_count for n, w in WRAPPERS.items()}
+    """``fn(*args, **kw)`` with every kernel's launch counts (the total and
+    per device) left as they were: a call made as a reference or a
+    yardstick does not count for the path being driven."""
+    before = {n: (w.launch_count, dict(w.device_launches))
+              for n, w in WRAPPERS.items()}
     try:
         return fn(*args, **kw)
     finally:
         for n, w in WRAPPERS.items():
-            w.launch_count = before[n]
+            w.launch_count = before[n][0]
+            w.device_launches.clear()
+            w.device_launches.update(before[n][1])
 
 
 def path_kernels_of(p):
@@ -1016,31 +1063,39 @@ def shipped_cells():
     return paths
 
 
-def cli_two_ranks(what, files):
-    """The CLI's two-rank group on the card over ``files``: every golden
-    check must pass, and the exit code must equal the timing-stability gate
-    errors the ranks printed (two ranks time-slicing the card trip them in
-    about half the runs). Returns each rank's s/call line."""
+def cli_ranks(what, files, nprocs=2, backend=None):
+    """The CLI's group of ``nprocs`` ranks on the cards over ``files``:
+    every golden check must pass, and the exit code must equal the
+    timing-stability gate errors the ranks printed (two ranks time-slicing
+    the card trip them in about half the runs); with ``backend``, rank 0
+    must have joined that backend. Returns each rank's s/call line."""
     import re
 
     out, rc = run_children([[sys.executable, "-m",
                              "raytrace_tpu_torch.utils.cli", "-methods=cuda",
-                             "-nprocs=2", "-iterations=3", *files]], 300,
-                           what, gate_errors_ok=True)[0]
+                             f"-nprocs={nprocs}", "-iterations=3", *files]],
+                           300, what, gate_errors_ok=True)[0]
+    joined = f"process group: {nprocs} ranks, backend {backend}"
+    if backend is not None and joined not in out:
+        print(out[-4000:], flush=True)
+        fail(f"{what}: no line '{joined}'")
     gates = cli_gate_errors(out)
     if "Answers do not match" in out or rc != gates or (
             "All tests passed" if rc == 0
             else f"Some tests failed ({rc} errors)") not in out:
         print(out[-4000:], flush=True)
         fail(f"{what}: exit code {rc}, {gates} timing-gate errors printed")
-    print(f"{what}: golden checks passed on both ranks; exit code {rc}, "
+    print(f"{what}: golden checks passed on every rank; exit code {rc}, "
           f"{gates} timing-stability gate errors", flush=True)
-    ranks = re.findall(r"^  (\S+ rank \d+ s/call: .*)$", out, re.M)
+    # the ranks share one output pipe, so another rank's stray text may
+    # precede a line of rank 0's
+    ranks = re.findall(r"(\S+ rank \d+ s/call: \[[^\]\n]*\])", out)
     for line in ranks:
         print(f"  {line}", flush=True)
-    if len(ranks) != 2 * len(files):
+    if len(ranks) != nprocs * len(files):
+        print(out[-6000:], flush=True)
         fail(f"{what}: {len(ranks)} per-rank timing lines, not "
-             f"{2 * len(files)}")
+             f"{nprocs * len(files)}")
     return dict(exit_code=rc, ranks=ranks)
 
 
@@ -1050,10 +1105,10 @@ def phase_ranks():
     loop with 1 and 2 ranks."""
     files = [os.path.join(FIXTURES, name)
              for name in ("golden_ase.dat", "golden_seed.dat")]
-    record["nprocs2_cli"] = cli_two_ranks(
+    record["nprocs2_cli"] = cli_ranks(
         "CLI -methods=cuda -nprocs=2 -iterations=3 on the fixtures and the "
         "shipped shapes", files + shipped_cells())
-    one, two = production_loops()
+    (one, two), _ = production_loops()
     worst = max(abs(a - b) / a for a, b in zip(one, two))
     if worst > 1e-10:
         fail(f"production loop: E_sum 1 rank {one}, 2 ranks {two}")
@@ -1249,12 +1304,442 @@ def phase_medium():
         fail(f"medium-scale path: gates {res['gates']}")
 
 
+#: phase 11's timed calls of each bench row, on one card and on the mesh
+MULTI_REPS = {"ase_small": 3, "seed_small": 3, "scale64": 2,
+              "seed_scale4": 3}
+#: a call on another card, and a sharded call, against the call on cuda:0:
+#: B2's f64 atomics add in an order that changes from call to call, so two
+#: calls on one card already differ at about 1e-16
+MULTI_REL = 1e-12
+
+
+def card_lines():
+    """Every card's name and power limit, as nvidia-smi reports them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        fail(f"nvidia-smi: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()
+
+
+def topology(cards):
+    """Peer access between every two cards of ``cards`` (torch's
+    ``can_device_access_peer``) and ``nvidia-smi topo -m`` as text (or what
+    it printed when it failed)."""
+    idx = [d.index for d in dict.fromkeys(cards)]
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in idx for j in idx if i != j}
+    try:
+        r = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                           text=True, timeout=60)
+        topo = (r.stdout + r.stderr).strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        topo = f"nvidia-smi topo -m: {e}"
+    return peer, topo
+
+
+def launched_on(what, names, devices, fn, *args, **kw):
+    """``fn(*args, **kw)``; fails unless each of ``names`` launched on each
+    of ``devices`` in it (the wrappers' per-device counts). Returns the
+    result and the launches per kernel and device."""
+    devices = list(dict.fromkeys(torch.device(d) for d in devices))
+    before = {n: dict(WRAPPERS[n].device_launches) for n in names}
+    out = fn(*args, **kw)
+    made = {n: {str(d): WRAPPERS[n].device_launches.get(d, 0)
+                - before[n].get(d, 0) for d in devices} for n in names}
+    if min(v for m in made.values() for v in m.values()) <= 0:
+        fail(f"{what}: launches per card {made}; each of {names} must "
+             f"launch on each of {[str(d) for d in devices]}")
+    return out, made
+
+
+def kernel_chain(dev):
+    """B1, B3 and B2 (bins output) on 65,536 rays of the seeded shipped
+    shape on ``dev``, through the wrappers, with ``cuda:0`` left current;
+    every output on the host."""
+    from raytrace_tpu_torch.models.problem import prepare_beam, prepare_gain
+    from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
+                                        deposit_kernel, trace_kernel)
+    from raytrace_tpu_torch.testing import (SEED_SHAPE, seed_factors,
+                                            source_rays, synthetic_problem)
+
+    p = synthetic_problem(**SEED_SHAPE)
+    n = 65536
+    gain = prepare_gain(p.gain, dev)
+    rays = source_rays(p, n, dev)
+    res = trace_kernel.trace_batch(rays, p.N, p.euv_beam.dz, gain, 2,
+                                   use_emis=False)
+    f, fv = seed_factors(p, n, dev)
+    Iv, flags = amplify_kernel.amplify_gain(f, fv, res.escaped, res.ivl,
+                                            res.gvl, gain.gv[1:])
+    beam = prepare_beam(p.euv_beam, dev)
+    coords = binning.source_coords(res, rays, 2)
+    ok = ~(res.perp | (flags != 0))
+    K = Iv.shape[1]
+    acc = (torch.zeros((beam.x.shape[0] * beam.y.shape[0], K),
+                       dtype=torch.float64, device=dev),
+           torch.zeros((beam.a.shape[0] * beam.b.shape[0], 1),
+                       dtype=torch.float64, device=dev))
+    deposit_kernel.bin_deposit(Iv, coords, ok, beam, 2, 1.0, *acc)
+    bins = deposit_kernel._launch(
+        cuda_lib.load_library(), Iv, coords, ok, beam, 2, 1.0,
+        *(torch.zeros_like(a) for a in acc),
+        torch.cuda.current_stream(dev).cuda_stream, bins=True)
+    torch.cuda.synchronize(dev)
+    return dict({f: getattr(res, f).cpu() for f in res._fields},
+                Iv=Iv.cpu(), flags=flags.cpu(), bins=bins.cpu(),
+                image=acc[0].cpu(), i_ang=acc[1].cpu())
+
+
+def multicard_single(cards):
+    """Single calls on each card with ``cuda:0`` current: the kernels'
+    per-ray outputs bitwise equal to cuda:0's, each call within
+    ``MULTI_REL`` of cuda:0's (beside two calls on cuda:0 itself)."""
+    from raytrace_tpu_torch import create_image, load_input
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            synthetic_problem)
+
+    torch.cuda.set_device(0)
+    home = torch.device("cuda:0")
+    others = [d for d in dict.fromkeys(cards) if d != home]
+    want = uncounted(kernel_chain, home)
+    for dev in others:
+        got, made = launched_on(f"kernels on {dev}",
+                                ("trace", "amplify", "bin_deposit"), (dev,),
+                                kernel_chain, dev)
+        exact = [k for k in ("gvl", "evl", "ivl", "exit_x", "exit_y",
+                             "exit_a", "exit_b", "escaped", "perp", "Iv",
+                             "flags", "bins")
+                 if not torch.equal(got[k], want[k])]
+        rel = max(rel_l2(got[k].numpy(), want[k].numpy())
+                  for k in ("image", "i_ang"))
+        if exact or rel > MULTI_REL or torch.cuda.current_device() != 0:
+            fail(f"kernels on {dev}: not bitwise equal to cuda:0's {exact}, "
+                 f"deposit rel L2 {rel}, current device "
+                 f"{torch.cuda.current_device()}")
+        print(f"kernels on {dev} with cuda:0 current: B1, B3 and B2's bins "
+              f"bitwise equal to cuda:0's, B2's image and I_ang within "
+              f"{rel:.3e}; launches {made}", flush=True)
+    cases = [(name, functools.partial(
+        lambda path: load_input(path)[0], os.path.join(FIXTURES, name)))
+        for name in ("golden_ase.dat", "golden_seed.dat")]
+    cases += [(name, functools.partial(synthetic_problem, **shape))
+              for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE))]
+    out = {}
+    for name, make in cases:
+        p = make()
+        base = uncounted(create_image, p, "cuda", device=home)
+        again = uncounted(create_image, make(), "cuda", device=home)
+        row = dict(repeat_cuda0=max(rel_l2(again[0], base[0]),
+                                    rel_l2(again[1], base[1])),
+                   repeat_bitwise=bool(np.array_equal(again[0], base[0])
+                                       and np.array_equal(again[1], base[1])))
+        for dev in others:
+            got, _ = launched_on(f"{name} on {dev}", path_kernels_of(p),
+                                 (dev,), create_image, make(), "cuda",
+                                 device=dev)
+            check_output(*got, p)
+            rel = max(rel_l2(got[0], base[0]), rel_l2(got[1], base[1]))
+            if rel > MULTI_REL or torch.cuda.current_device() != 0:
+                fail(f"{name} on {dev}: rel L2 {rel} against cuda:0, current "
+                     f"device {torch.cuda.current_device()}")
+            row[str(dev)] = dict(rel=rel, bitwise=bool(
+                np.array_equal(got[0], base[0])
+                and np.array_equal(got[1], base[1])))
+        print(f"{name} single calls with cuda:0 current: {row}", flush=True)
+        out[name] = row
+    return out
+
+
+def multicard_sharded(cards):
+    """Both fixtures through create_image_sharded on ``cards`` against their
+    goldens, every card launching its kernels."""
+    from raytrace_tpu_torch import check_ans, load_input
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+
+    out = {}
+    for name in ("golden_ase.dat", "golden_seed.dat"):
+        p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
+        (image, i_ang), made = launched_on(
+            f"{name} sharded on {len(cards)} cards", path_kernels_of(p),
+            cards, create_image_sharded, p, cards, "cuda")
+        check_output(image, i_ang, p)
+        r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
+        if (not check_ans(image0, i_ang0, image, i_ang) or r_img >= 1e-5
+                or r_ang >= 1e-5):
+            fail(f"{name} sharded on {len(cards)} cards: check_ans or rel L2 "
+                 f"image {r_img} I_ang {r_ang}")
+        print(f"{name} sharded on {[str(d) for d in cards]}: check_ans ok, "
+              f"rel L2 image {r_img:.3e} I_ang {r_ang:.3e}; launches "
+              f"{made}", flush=True)
+        out[name] = dict(rel_image=r_img, rel_iang=r_ang, launches=made)
+    return out
+
+
+def multicard_rows(cards):
+    """The bench's rows on one card and on ``cards`` in one run
+    (``tools/bench.run`` with ``mesh``): every gate true, every card
+    launching B1 and B2 (and B3 on the seeded rows) in each mesh row; the
+    s/call beside the 1-card s/call, each card's peak memory, first and
+    last marks and the reduction's time."""
+    from raytrace_tpu_torch.tools import bench
+
+    D = len(cards)
+    t0 = time.perf_counter()
+    res = bench.run(device=cards[0], reps=MULTI_REPS, stream_rounds={},
+                    twins=(), out_dir=OUT_DIR, mesh=D)
+    if res["mesh_devices"] != [str(d) for d in cards]:
+        fail(f"bench mesh {res['mesh_devices']}, not {cards}")
+    rows = {}
+    for name in MULTI_REPS:
+        p = f"{name}_mesh{D}_"
+        need = ("trace", "bin_deposit") + (
+            ("amplify",) if name.startswith("seed") else ())
+        per_card = res[p + "launches_per_card"]
+        short = [(k, str(d)) for k in need for d in cards
+                 if per_card[k].get(str(d), 0) <= 0]
+        if short:
+            fail(f"{p[:-1]}: no launches of {short}: {per_card}")
+        calls = res[p + "calls"]
+        best = min(calls, key=lambda c: c["total_s"])
+        mem = res[f"mem_after_{name}_mesh{D}"]
+        rows[name] = dict(
+            rays=res[p + "n_rays"],
+            single_s=res[f"{name}_best_seconds_per_call"],
+            mesh_s=res[p + "best_seconds_per_call"],
+            speedup=res[p + "speedup"],
+            rel=res[p + "rel_vs_single"], launches_per_card=per_card,
+            peak_gib={d: m["max_memory_allocated"] / 2 ** 30
+                      for d, m in mem.items()},
+            single_peak_gib=res[f"mem_after_{name}"]["max_memory_allocated"]
+            / 2 ** 30,
+            reduce_ms=[c["reduce_s"] * 1e3 for c in calls],
+            best_call=best)
+        r = rows[name]
+        print(f"{name} ({r['rays']} rays): {D} cards {r['mesh_s']:.5f} s/call"
+              f" (timed {[round(c['total_s'], 5) for c in calls]}), 1 card "
+              f"{r['single_s']:.5f}, speedup {r['speedup']:.3f}; rel L2 "
+              f"against 1 card {r['rel']:.3e}; split of the best call: "
+              f"dispatch {best['dispatch_s']:.5f} s, wait "
+              f"{best['wait_s']:.5f} s, reduction {best['reduce_s'] * 1e3:.4f}"
+              f" ms on the device; peak GiB per card "
+              f"{ {d: round(v, 3) for d, v in r['peak_gib'].items()} } "
+              f"(1 card {r['single_peak_gib']:.3f}); launches per call per "
+              f"card {per_card}", flush=True)
+        for e in best["cards"]:
+            print(f"  {name} {e['device']}: first mark {e['first']:.3f} ms, "
+                  f"last {e['last']:.3f} ms after the card's start",
+                  flush=True)
+    gates = res["gates"]
+    print(f"multi-card bench gates {gates}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not res["gates_ok"] or not all(v is True for k, v in gates.items()
+                                      if "mesh" in k):
+        fail(f"multi-card rows: gates {gates}")
+    return dict(rows=rows, gates=gates, artifact=res)
+
+
+def multicard_profile(cards):
+    """Device time per kernel of one call of each shipped shape on cuda:0
+    and sharded on ``cards`` (summed over the cards), under the profiler:
+    stride D shortens B2's runs of equal exit bins."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            synthetic_problem)
+
+    out = {}
+    for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
+        p = synthetic_problem(**shape)
+        prof = {"1 card": uncounted(profile_calls, lambda: create_image(
+                    p, "cuda", device="cuda:0")),
+                f"{len(cards)} cards": profile_calls(
+                    lambda: create_image_sharded(p, cards, "cuda"))}
+        for what, (dev_ms, n_launch, per) in prof.items():
+            print(f"{name} shipped shape on {what} under the profiler: "
+                  f"device {dev_ms:.3f} ms/call (all cards), {n_launch:.1f} "
+                  f"kernel launches/call, B1 {per['trace']:.3f}, B2 "
+                  f"{per['bin_deposit']:.3f}, B3 {per['amplify']:.3f} "
+                  f"ms/call", flush=True)
+        out[name] = prof
+    return out
+
+
+def multicard_stream(cards):
+    """create_image_stream(mesh=cards) at depth 2 over 4 perturbed units
+    of each shipped shape: every yield within ``MULTI_REL`` of the
+    synchronous sharded call, every card launching."""
+    from raytrace_tpu_torch import create_image_stream
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            perturbed_problems,
+                                            synthetic_problem)
+
+    out = {}
+    for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
+        source = functools.partial(synthetic_problem, **shape)
+        sync = [uncounted(create_image_sharded, u, cards, "cuda")
+                for u in perturbed_problems(source, 4, salt=5)]
+        units = perturbed_problems(source, 4, salt=5)
+
+        def stream():
+            marks, worst = [], 0.0
+            for k, (image, i_ang) in enumerate(create_image_stream(
+                    units, "cuda", mesh=cards, depth=2)):
+                marks.append(time.perf_counter())
+                check_output(image, i_ang, units[k])
+                worst = max(worst, rel_l2(image, sync[k][0]),
+                            rel_l2(i_ang, sync[k][1]))
+            return marks, worst
+
+        t0 = time.perf_counter()
+        (marks, worst), made = launched_on(f"mesh stream {name}",
+                                           path_kernels_of(units[0]), cards,
+                                           stream)
+        if len(marks) != 4 or worst > MULTI_REL:
+            fail(f"mesh stream {name}: {len(marks)} yields, worst rel L2 "
+                 f"against the sharded call {worst}")
+        per_call = (marks[-1] - t0) / 4
+        print(f"mesh stream {name} on {len(cards)} cards, depth 2: rel L2 vs "
+              f"sync <= {worst:.3e}; fill {marks[0] - t0:.5f} s, s/call "
+              f"{per_call:.5f}; launches {made}", flush=True)
+        out[name] = dict(worst_rel=worst, fill_s=marks[0] - t0,
+                         per_call_s=per_call)
+    return out
+
+
+def multicard_processes(cards):
+    """As subprocesses: the CLI's ``-multichip -methods=cuda`` on both
+    fixtures; its group of one rank per card (``-nprocs``) on both fixtures
+    and both shipped shapes, with the backend ``distributed.backend_for``
+    gives; the rank harness (``tools/run_distributed.py``: gather_all,
+    sum_scalar, host_sum_arrays, the stride partition and a sharded call
+    summed over the ranks) and the production loop with one rank per card
+    against one rank."""
+    import re
+
+    from raytrace_tpu_torch.parallel import distributed
+
+    n = len(cards)
+    backend = distributed.backend_for(n, torch.cuda.device_count(), False)
+    files = [os.path.join(FIXTURES, name)
+             for name in ("golden_ase.dat", "golden_seed.dat")]
+    what = "CLI -methods=cuda -multichip -iterations=3 on the fixtures"
+    (out, rc), = run_children([[sys.executable, "-m",
+                                "raytrace_tpu_torch.utils.cli",
+                                "-methods=cuda", "-multichip",
+                                "-iterations=3", *files]], 300, what,
+                              gate_errors_ok=True)
+    label = f"multichip[{torch.cuda.device_count()}]"
+    if ("Answers do not match" in out or rc != cli_gate_errors(out)
+            or out.count(f"Running {label} on ") != 2):
+        print(out[-4000:], flush=True)
+        fail(f"{what}: exit code {rc}, two '{label}' rows expected")
+    print(f"{what}: golden checks passed on the {label} rows; exit code {rc}",
+          flush=True)
+    res = dict(multichip_cli=dict(exit_code=rc))
+    res["nprocs_cli"] = cli_ranks(
+        f"CLI -methods=cuda -nprocs={n} -iterations=3 on the fixtures and "
+        f"the shipped shapes", files + shipped_cells(), nprocs=n,
+        backend=backend)
+    harness = rank_tool("run_distributed.py", n)
+    (one, many), outs = production_loops(n, extra=harness)
+    worst = max(abs(a - b) / a for a, b in zip(one, many))
+    if worst > 1e-10:
+        fail(f"production loop: E_sum 1 rank {one}, {n} ranks {many}")
+    joined = f"process group: {n} ranks, backend {backend}"
+    for pid, (hout, _rc) in enumerate(outs[-n:]):
+        checks = re.findall(rf"CHECK\[{pid}\] \S+: pass", hout)
+        if f"RESULT[{pid}] ALL_PASS" not in hout or len(checks) != 10:
+            print(hout[-4000:], flush=True)
+            fail(f"rank harness, rank {pid}: {len(checks)} checks passed")
+    if joined not in outs[-n][0] or joined not in outs[1][0]:
+        fail(f"rank harness or production loop: no line '{joined}'")
+    print(f"rank harness on {n} ranks ({backend}): every check passed on "
+          f"every rank; production loop on {n} ranks: E_sum 1 rank {one}, "
+          f"{n} ranks {many}, rel {worst:.3e}", flush=True)
+    res.update(production_loop=dict(one=one, many=many, rel=worst),
+               backend=backend)
+    return res
+
+
+def phase_multicard(cards=None):
+    """Phase 11, the multi-card path: every card's line, peer access and
+    the topology; single calls on each card with cuda:0 current; the
+    sharded call on ``cards`` (``make_mesh()`` by default); the bench's rows
+    on one card and on the mesh; the mesh stream; the CLI, the rank
+    harness and the production loop on one rank per card."""
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+
+    cards = make_mesh(devices=cards)
+    t0 = time.perf_counter()
+    lines = card_lines()
+    for line in lines:
+        print(f"card: {line}", flush=True)
+    peer, topo = topology(cards)
+    print(f"peer access {peer}; nvidia-smi topo -m: {topo}", flush=True)
+    rec = dict(cards=lines, peer=peer, topo=topo, mesh=[str(d) for d in cards])
+    rec["single"] = multicard_single(cards)
+    rec["sharded"] = multicard_sharded(cards)
+    rec["rows"] = multicard_rows(cards)
+    rec["stream"] = multicard_stream(cards)
+    # the profiler last in this process: the timings above run without it
+    rec["profile"] = multicard_profile(cards)
+    rec["processes"] = multicard_processes(cards)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"multi-card path: {rec['seconds']:.1f} s", flush=True)
+    record["multicard"] = rec
+
+
 T_START = time.perf_counter()
 
 
-def main() -> int:
+#: the one line a run on fewer than two cards prints in place of phase 11
+MULTICARD_NOTE = ("phase 11 (the multi-card path) needs two or more cards: "
+                  "run python3 chip_smoke.py --multicard on a host with four")
+
+
+def run_path(what, phase, names):
+    """Drive one path with every count at 0 (the totals and the per-device
+    counts); each kernel of the path must have launched."""
+    for w in WRAPPERS.values():
+        w.launch_count = 0
+        w.device_launches.clear()
+    out = phase()
+    counts = {n: WRAPPERS[n].launch_count for n in names}
+    print(f"launches on the {what}: {counts}", flush=True)
+    for n, c in counts.items():
+        if c <= 0:
+            fail(f"kernel {n} was not launched on the {what}")
+    return out, counts
+
+
+def finish(name, extra_lines=()):
+    """Write the record, print ``extra_lines``, every card's line and the
+    result line."""
+    record["seconds"] = time.perf_counter() - T_START
+    print(f"chip_smoke: every phase passed in {record['seconds']:.1f} s",
+          flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        json.dump(record, f, indent=1)
+    for line in extra_lines:
+        print(line, flush=True)
+    print("\n".join(card_lines()), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main(argv) -> int:
+    multicard = "--multicard" in argv
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
+        return 1
+    if multicard and torch.cuda.device_count() < 2:
+        print(f"FAIL: --multicard: {torch.cuda.device_count()} card visible; "
+              f"{MULTICARD_NOTE}", flush=True)
         return 1
     card = card_line()
     print(card, flush=True)
@@ -1272,28 +1757,20 @@ def main() -> int:
             print("  ptxas:", line.strip(), flush=True)
     record.update(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=info["seconds"])
+    WRAPPERS.update({"trace": trace_kernel, "bin_deposit": deposit_kernel,
+                     "amplify": amplify_kernel,
+                     "gather_probe": gather_probe})
+    path_kernels = ("trace", "bin_deposit", "amplify")
+
+    if multicard:
+        _, record["multicard_launches"] = run_path(
+            "multi-card path", phase_multicard, path_kernels)
+        finish("chip_smoke_multicard.json")
+        return 0
 
     results = {}
     phase_kernels(results)
 
-    wrappers = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
-                "amplify": amplify_kernel, "gather_probe": gather_probe}
-    WRAPPERS.update(wrappers)
-
-    def run_path(what, phase, names):
-        """Drive one path with every count at 0; each kernel of the path
-        must have launched."""
-        for w in wrappers.values():
-            w.launch_count = 0
-        out = phase()
-        counts = {n: wrappers[n].launch_count for n in names}
-        print(f"launches on the {what}: {counts}", flush=True)
-        for n, c in counts.items():
-            if c <= 0:
-                fail(f"kernel {n} was not launched on the {what}")
-        return out, counts
-
-    path_kernels = ("trace", "bin_deposit", "amplify")
     outs, launches = run_path("main path", phase_main_path, path_kernels)
     _, stream_launches = run_path("stream path", phase_stream, path_kernels)
     _, probe_launches = run_path("probe path", phase_probe_path,
@@ -1308,6 +1785,11 @@ def main() -> int:
                                           path_kernels)
     _, record["medium_launches"] = run_path("medium-scale path",
                                             phase_medium, path_kernels)
+    if torch.cuda.device_count() >= 2:
+        _, record["multicard_launches"] = run_path(
+            "multi-card path", phase_multicard, path_kernels)
+    else:
+        print(MULTICARD_NOTE, flush=True)
 
     kernels = []
     for name, src, replaces in (
@@ -1324,19 +1806,9 @@ def main() -> int:
                 "seeded": LAUNCHES_PER_CALL["seed"][name],
                 "ase": LAUNCHES_PER_CALL["ase"][name]}))
     record["kernels"] = kernels
-    record["seconds"] = time.perf_counter() - T_START
-    print(f"chip_smoke: every phase passed in {record['seconds']:.1f} s",
-          flush=True)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    finish("chip_smoke.json", [json.dumps({"kernels": kernels})])
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,7 +19,11 @@ A call is a dispatch (:func:`_dispatch`: upload, every chunk's kernels, the
 start of the readback; the host never waits) and a finalize
 (:func:`_finalize`: wait for the one readback of image, I_ang and failure
 bits). ``create_image`` runs the two back to back; ``create_image_stream``
-keeps up to ``depth`` calls dispatched.
+keeps up to ``depth`` calls dispatched. A dispatch is a sequence of steps,
+one a chunk (:func:`_dispatch_steps`), so that a mesh of cards can advance
+its entries' dispatches in turns. On a CUDA device the dispatch runs with
+that device current (``cuda_lib.device_guard``), whichever device the
+caller had made current.
 
 Methods: ``cuda`` runs the hand-written kernels (trace B1, deposit B2,
 amplify B3) on a CUDA device; ``cpu`` runs their plain PyTorch twins (on the
@@ -43,9 +47,9 @@ import torch
 from raytrace_tpu_torch.models.problem import (
     DeviceGain, beam_arrays, beam_from_tensors, gain_arrays, pack_arrays,
     seed_arrays, seed_from_tensors, unpack_arrays)
-from raytrace_tpu_torch.ops import (amplify_kernel, binning, deposit_kernel,
-                                    seed as seed_ops, spectrum, stepper,
-                                    trace_kernel)
+from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
+                                    deposit_kernel, seed as seed_ops,
+                                    spectrum, stepper, trace_kernel)
 from raytrace_tpu_torch.structures import CreateImageProblem
 from raytrace_tpu_torch.utils import errors as err_util
 from raytrace_tpu_torch.utils.timer import profiler
@@ -196,7 +200,8 @@ def create_image(problem: CreateImageProblem, compute_method: str = "auto",
         timer_name = _validate(problem)[3] + "-" + name
         profiler.start(timer_name)
         try:
-            call = _dispatch(problem, name, dev, chunk_size, c)
+            with cuda_lib.device_guard(dev):
+                call = _dispatch(problem, name, dev, chunk_size, c)
             return _finalize(call, failed_ray_path)
         finally:
             profiler.stop(timer_name, dev)
@@ -245,8 +250,9 @@ def create_image_stream(problems, compute_method: str = "auto", device=None,
         feedback = _Feedback() if reorder else None
 
         def dispatch(problem):
-            return _dispatch(problem, name, dev, chunk_size, c, streams,
-                             feedback)
+            with cuda_lib.device_guard(dev):
+                return _dispatch(problem, name, dev, chunk_size, c, streams,
+                                 feedback)
         finalize = _finalize
     else:
         if device is not None:
@@ -408,7 +414,7 @@ def _upload(packed, dev, streams):
         with torch.cuda.stream(streams.upload):
             dbuf = buf.to(dev, non_blocking=True)
             ready = torch.cuda.Event()
-            ready.record()
+            ready.record(streams.upload)
         compute = torch.cuda.current_stream(dev)
         compute.wait_event(ready)
         dbuf.record_stream(compute)
@@ -423,23 +429,26 @@ def _upload(packed, dev, streams):
 
 def _readback(out: torch.Tensor, dev, streams):
     """Start the copy of ``out`` to the host; returns ``(host, event)``
-    (``out`` itself and None on the CPU)."""
+    (``out`` itself and None on the CPU). The copy follows the current
+    stream of ``dev``, and the event is recorded on ``dev``, whichever
+    device is current: it completes only after the copy."""
     if dev.type != "cuda":
         return out, None
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    compute = torch.cuda.current_stream(dev)
     if streams is None:
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(compute)
         return host, done
     ready = torch.cuda.Event()
-    ready.record()
+    ready.record(compute)
     streams.readback.wait_event(ready)
     with torch.cuda.stream(streams.readback):
         host.copy_(out, non_blocking=True)
         out.record_stream(streams.readback)
         done = torch.cuda.Event()
-        done.record()
+        done.record(streams.readback)
     return host, done
 
 
@@ -476,10 +485,28 @@ def _tables(problem, src, dev, streams=None, packed=None) -> _Tables:
 def _dispatch(problem, name, dev, chunk_size, c, streams=None,
               feedback=None, readback=True, tables=None) -> _Call:
     """Validate, upload the tables (unless ``tables`` holds them already),
-    enqueue every chunk and (with ``readback``) the readback. Nothing here
-    waits for the device. ``feedback`` (a stream's reorder state) turns on
-    the cost-feedback reorder and is updated in place. Work goes to the
-    current stream of ``dev`` (the side streams of ``streams`` aside)."""
+    enqueue every chunk and (with ``readback``) the readback: every step of
+    :func:`_dispatch_steps` at once. Nothing here waits for the device."""
+    steps = _dispatch_steps(problem, name, dev, chunk_size, c, streams,
+                            feedback, readback, tables)
+    while True:
+        try:
+            next(steps)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
+                    feedback=None, readback=True, tables=None):
+    """:func:`_dispatch` as a generator that yields after each chunk's
+    launches and returns the :class:`_Call` (``StopIteration.value``). The
+    first step validates, uploads and enqueues the first chunk; the last
+    enqueues the failure flags and the readback. ``feedback`` (a stream's
+    reorder state) turns on the cost-feedback reorder and is updated in
+    place. Each step's work goes to the current stream of ``dev`` (the side
+    streams of ``streams`` aside), so a caller that interleaves the steps
+    of several dispatches makes each one's device and stream current around
+    each step."""
     method, src, scale, _ = _validate(problem)
     beam = problem.euv_beam
     K = beam.nv
@@ -562,6 +589,7 @@ def _dispatch(problem, name, dev, chunk_size, c, streams=None,
         else:
             # natural order, so the failure path names the physical ray
             codes.narrow(0, start, n).index_copy_(0, perm, code)
+        yield
     if feedback is not None:
         feedback.key, feedback.counts = key, counts
 

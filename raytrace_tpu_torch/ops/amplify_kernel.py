@@ -25,7 +25,8 @@ directly; ``pack_gv`` has no counterpart here.
 
 :func:`amplify_gain` dispatches on the tensors' device: CPU tensors take the
 plain twin :func:`amplify_gain_plain`, CUDA tensors launch the kernel (or
-raise). ``launch_count`` counts kernel launches.
+raise) on their own card. ``launch_count`` counts kernel launches,
+``device_launches`` them per device.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import torch
 from raytrace_tpu_torch.ops import cuda_lib
 
 __all__ = ["amplify_gain", "amplify_gain_plain", "log_gain_plain",
-           "iv_flags", "FLAG_NEG", "FLAG_NAN", "launch_count"]
+           "iv_flags", "FLAG_NEG", "FLAG_NAN", "launch_count",
+           "device_launches"]
 
 #: flag bits per ray: some Iv < 0 (failure code -2), some Iv NaN (code -3)
 FLAG_NEG, FLAG_NAN = 1, 2
@@ -45,6 +47,8 @@ _K_MAX = 256
 
 #: kernel launches since import (or since a caller last reset it)
 launch_count = 0
+#: the same launches per device
+device_launches: dict = {}
 
 
 def log_gain_plain(ivl: torch.Tensor, gvl: torch.Tensor,
@@ -137,6 +141,7 @@ def amplify_gain(f: torch.Tensor, fv: torch.Tensor, escaped: torch.Tensor,
                            gv, stream)
     global launch_count
     launch_count += 1
+    cuda_lib.count_launch(device_launches, f.device)
     return Iv, flags
 
 
@@ -152,10 +157,11 @@ def _launch(lib, f, fv, escaped, ivl, gvl, gv, stream, log_gain=False):
                         device=dev)
     gl = torch.empty_like(Iv) if log_gain else None
     pairs = K % 2 == 0 and gv.data_ptr() % 8 == 0
-    rc = lib.rt_amplify_seeded(
-        f.data_ptr(), fv.data_ptr(), escaped.data_ptr(), ivl.data_ptr(),
-        gvl.data_ptr(), gv.data_ptr(), B, nseg, nsub, gv.shape[1], K,
-        int(pairs), Iv.data_ptr(), flags.data_ptr(),
-        None if gl is None else gl.data_ptr(), stream)
+    with cuda_lib.device_guard(dev):
+        rc = lib.rt_amplify_seeded(
+            f.data_ptr(), fv.data_ptr(), escaped.data_ptr(), ivl.data_ptr(),
+            gvl.data_ptr(), gv.data_ptr(), B, nseg, nsub, gv.shape[1], K,
+            int(pairs), Iv.data_ptr(), flags.data_ptr(),
+            None if gl is None else gl.data_ptr(), stream)
     cuda_lib.check(rc, "rt_amplify_seeded")
     return Iv, flags[:B], gl

@@ -11,10 +11,16 @@ each C entry returns ``cudaGetLastError()`` of its launch.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
+
+A C entry launches on the current device, and ``rt_trace`` sizes its grid
+from that device's occupancy; the wrappers therefore launch under
+:func:`device_guard` of their inputs, so that a kernel whose tensors lie on
+``cuda:k`` runs on ``cuda:k`` whatever device the caller made current.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +29,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "check", "NVCC_FLAGS", "CSRC_DIR"]
+import torch
+
+__all__ = ["load_library", "build_info", "check", "device_guard",
+           "count_launch", "NVCC_FLAGS", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch"
@@ -139,6 +148,23 @@ def build_info() -> dict:
     """What :func:`load_library` did: ``built`` (compiled in this process),
     ``seconds`` (nvcc wall time), ``path`` and the compiler ``log``."""
     return dict(_info)
+
+
+def device_guard(dev):
+    """``torch.cuda.device(dev)`` for a CUDA device: work enqueued inside
+    runs on ``dev`` and its current stream. A null context for the CPU
+    (the host-compiled library of the source tests, the plain twins)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def count_launch(counts: dict, dev) -> None:
+    """Add one launch on ``dev`` to a wrapper's per-device counts (beside
+    its total ``launch_count``)."""
+    dev = torch.device(dev)
+    counts[dev] = counts.get(dev, 0) + 1
 
 
 def check(rc: int, name: str) -> None:

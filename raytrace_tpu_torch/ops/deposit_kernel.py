@@ -18,8 +18,9 @@ results differ between runs at about 1e-15 relative; the bins are the
 twin's bitwise.
 
 :func:`bin_deposit` dispatches on the device: CPU tensors take the plain
-twin, CUDA tensors launch the kernel (or raise). ``launch_count`` counts
-kernel launches.
+twin, CUDA tensors launch the kernel (or raise) on their own card.
+``launch_count`` counts kernel launches, ``device_launches`` them per
+device.
 """
 
 from __future__ import annotations
@@ -31,10 +32,12 @@ from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.binning import bin_indices
 
 __all__ = ["bin_deposit", "bin_deposit_plain", "deposit_plain",
-           "launch_count"]
+           "launch_count", "device_launches"]
 
 #: kernel launches since import (or since a caller last reset it)
 launch_count = 0
+#: the same launches per device
+device_launches: dict = {}
 
 
 def deposit_plain(out: torch.Tensor, contrib: torch.Tensor,
@@ -108,6 +111,7 @@ def bin_deposit(Iv, coords, ok, beam: DeviceBeam, method: int,
             image_acc, iang_acc, stream)
     global launch_count
     launch_count += 1
+    cuda_lib.count_launch(device_launches, Iv.device)
 
 
 def _launch(lib, Iv, coords, ok, beam, method, scale, image_acc, iang_acc,
@@ -123,11 +127,12 @@ def _launch(lib, Iv, coords, ok, beam, method, scale, image_acc, iang_acc,
     for g, d in ((beam.x, beam.dx), (beam.y, beam.dy), (beam.a, beam.da),
                  (beam.b, beam.db)):
         axes += [g.data_ptr(), g.shape[0], float(d)]
-    rc = lib.rt_bin_deposit(
-        *(c.data_ptr() for c in coords), ok.data_ptr(), Iv.data_ptr(), B, K,
-        int(pairs), *axes, beam.dv.data_ptr(), float(scale),
-        int(method == 2 and beam.y0_nonneg), int(method == 2),
-        image_acc.data_ptr(), iang_acc.data_ptr(),
-        None if out is None else out.data_ptr(), stream)
+    with cuda_lib.device_guard(Iv.device):
+        rc = lib.rt_bin_deposit(
+            *(c.data_ptr() for c in coords), ok.data_ptr(), Iv.data_ptr(), B,
+            K, int(pairs), *axes, beam.dv.data_ptr(), float(scale),
+            int(method == 2 and beam.y0_nonneg), int(method == 2),
+            image_acc.data_ptr(), iang_acc.data_ptr(),
+            None if out is None else out.data_ptr(), stream)
     cuda_lib.check(rc, "rt_bin_deposit")
     return out

@@ -8,8 +8,9 @@ multi-segment trace and computes what
 see ``csrc/trace.cu`` for its design and precision placement.
 
 :func:`trace_batch` dispatches on the tensors' device: CPU tensors take the
-plain twin, CUDA tensors launch the kernel (or raise). ``launch_count``
-counts kernel launches. With ``counts=True`` both also return each ray's
+plain twin, CUDA tensors launch the kernel (or raise) on their own card.
+``launch_count`` counts kernel launches, ``device_launches`` them per
+device. With ``counts=True`` both also return each ray's
 number of propagate micro-steps (the counts variant the stream's reorder
 sorts by; the Pallas kernel's ``trace_tiles(counts=True)``).
 """
@@ -23,10 +24,13 @@ from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.stepper import N_SUB, TraceResult, \
     trace_batch_plain
 
-__all__ = ["trace_batch", "trace_batch_plain", "launch_count"]
+__all__ = ["trace_batch", "trace_batch_plain", "launch_count",
+           "device_launches"]
 
 #: kernel launches since import (or since a caller last reset it)
 launch_count = 0
+#: the same launches per device
+device_launches: dict = {}
 
 _GAIN_DTYPES = {"x": torch.float64, "y": torch.float64, "cdx": torch.float32,
                 "cdy": torch.float32, "n4": torch.float32,
@@ -83,6 +87,7 @@ def trace_batch(rays: dict, N: int, dz0: float, gain: DeviceGain,
     if B > 0:
         global launch_count
         launch_count += 1
+        cuda_lib.count_launch(device_launches, dev)
     return out
 
 
@@ -122,20 +127,22 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
     cells = torch.empty(B, **i32) if census else None
     if B > 0:
         absy = gain.abs_y.to(torch.int32)
-        rc = lib.rt_trace(
-            rays["x"].data_ptr(), rays["y"].data_ptr(), rays["a"].data_ptr(),
-            rays["b"].data_ptr(), B,
-            gain.x.data_ptr(), gain.y.data_ptr(), gain.cdx.data_ptr(),
-            gain.cdy.data_ptr(), gain.n4.data_ptr(), gain.g0.data_ptr(),
-            gain.E0.data_ptr(), gain.Gx.data_ptr(), gain.Gy.data_ptr(),
-            gain.range4.data_ptr(), absy.data_ptr(), gain.nx.data_ptr(),
-            gain.ny.data_ptr(), gain.x.shape[1], gain.y.shape[1], N,
-            float(dz0), float(c), int(method), int(bool(use_emis)),
-            gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(), ex.data_ptr(),
-            ey.data_ptr(), ea.data_ptr(), eb.data_ptr(), esc.data_ptr(),
-            perp.data_ptr(), None if steps is None else steps.data_ptr(),
-            None if cells is None else cells.data_ptr(),
-            _counter(dev, stream).data_ptr(), stream)
+        with cuda_lib.device_guard(dev):
+            rc = lib.rt_trace(
+                rays["x"].data_ptr(), rays["y"].data_ptr(),
+                rays["a"].data_ptr(), rays["b"].data_ptr(), B,
+                gain.x.data_ptr(), gain.y.data_ptr(), gain.cdx.data_ptr(),
+                gain.cdy.data_ptr(), gain.n4.data_ptr(), gain.g0.data_ptr(),
+                gain.E0.data_ptr(), gain.Gx.data_ptr(), gain.Gy.data_ptr(),
+                gain.range4.data_ptr(), absy.data_ptr(), gain.nx.data_ptr(),
+                gain.ny.data_ptr(), gain.x.shape[1], gain.y.shape[1], N,
+                float(dz0), float(c), int(method), int(bool(use_emis)),
+                gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(),
+                ex.data_ptr(), ey.data_ptr(), ea.data_ptr(), eb.data_ptr(),
+                esc.data_ptr(), perp.data_ptr(),
+                None if steps is None else steps.data_ptr(),
+                None if cells is None else cells.data_ptr(),
+                _counter(dev, stream).data_ptr(), stream)
         cuda_lib.check(rc, "rt_trace")
     res = TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=ex, exit_y=ey,
                       exit_a=ea, exit_b=eb, escaped=esc.view(torch.bool),
@@ -155,7 +162,8 @@ def find_index_launch(lib, X: torch.Tensor, y: torch.Tensor,
                          "least 2 points")
     X, y = X.contiguous(), y.to(torch.float64).contiguous()
     out = torch.empty(y.shape, dtype=torch.int32, device=y.device)
-    rc = lib.rt_find_index(X.data_ptr(), X.shape[0], y.data_ptr(),
-                           y.numel(), out.data_ptr(), stream)
+    with cuda_lib.device_guard(y.device):
+        rc = lib.rt_find_index(X.data_ptr(), X.shape[0], y.data_ptr(),
+                               y.numel(), out.data_ptr(), stream)
     cuda_lib.check(rc, "rt_find_index")
     return out

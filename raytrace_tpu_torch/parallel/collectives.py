@@ -1,6 +1,6 @@
 """Collective operations: the reference's MPI layer (SURVEY.md section 2.4
-P5/P6) on ``torch.distributed`` (gloo, host buffers) and on a mesh of
-devices.
+P5/P6) on ``torch.distributed`` (gloo for host buffers, NCCL for device
+tensors where each rank has a card of its own) and on a mesh of devices.
 
 Mapping:
 
@@ -16,6 +16,9 @@ Mapping:
 * the device reduction of a sharded call (``raytrace_tpu``'s in-shard_map
   ``psum``) -> :func:`sum_reduce`: per-device tensors summed onto the first
   device in f64;
+* its sum over the ranks (``raytrace_tpu``'s ``psum`` over the process
+  mesh, ``collectives._rank_collective``) -> :func:`rank_sum_on_card`: an
+  NCCL ``all_reduce`` on each rank's own card;
 * :func:`mesh_all_gather`: one row per mesh entry, gathered.
 
 Process model: one process is one rank (the process group of
@@ -32,8 +35,8 @@ import torch.distributed as dist
 
 from raytrace_tpu_torch.parallel import distributed
 
-__all__ = ["sum_reduce", "gather_all", "sum_scalar", "host_sum_arrays",
-           "mesh_all_gather"]
+__all__ = ["sum_reduce", "rank_sum_on_card", "gather_all", "sum_scalar",
+           "host_sum_arrays", "mesh_all_gather"]
 
 
 def sum_reduce(tensors) -> torch.Tensor:
@@ -50,6 +53,19 @@ def sum_reduce(tensors) -> torch.Tensor:
     for t in tensors[1:]:
         total += t.to(total.device, torch.float64, non_blocking=True)
     return total
+
+
+def rank_sum_on_card(t: torch.Tensor) -> torch.Tensor:
+    """Sum a CUDA tensor over the ranks of a group of one rank per card
+    (:func:`distributed.device_collectives`), on this rank's card: ``t`` is
+    copied there first when it lies on another card, then all-reduced in
+    place (NCCL, after the work queued on the card's current stream; the
+    card's current stream waits for the sum). Returns the summed tensor."""
+    card = distributed.rank_card()
+    with torch.cuda.device(card):
+        t = t.to(card)
+        dist.all_reduce(t)
+    return t
 
 
 def gather_all(values) -> np.ndarray:

@@ -25,23 +25,38 @@ mesh with one ``psum`` at the end of the call. Here:
 * **Each CUDA entry** is dispatched under ``torch.cuda.device(dev)`` on a
   compute stream of its own, so two entries on one card overlap, and on
   several cards each launches on its own device. The tables depend on the
-  problem, not on the stride: each device gets one upload and one seed
-  setup, on its current stream, and its entries' streams wait for them.
+  problem, not on the stride: the host packs them once, each device gets
+  one upload and one seed setup, on its current stream, and its entries'
+  streams wait for them.
+* **The entries are dispatched together**, as ``shard_map`` runs every
+  shard at once: one host thread advances the entries' dispatches
+  (``ray_tracer._dispatch_steps``) in turns, one chunk of each entry a
+  turn, each under its own device and compute stream. Entry by entry, the
+  host would fill one card's launch queue before the next card got its
+  first launch. Each entry's chunks, their order and its f64 accumulation
+  are those of its own single call.
 * **The reduction** (the ``psum``): each entry's f64 [image | I_ang |
   failure flags] partial meets on ``mesh[0]`` (peer copies,
   :func:`~raytrace_tpu_torch.parallel.collectives.sum_reduce`, each
   partial ordered after its stream by an event and kept alive there by
   ``record_stream``), and one readback brings the sum to the host. With a
-  process group,
-  :func:`~raytrace_tpu_torch.parallel.collectives.host_sum_arrays` then
-  sums it over the ranks (gloo), and every rank returns the total;
-  the failure flags are counts, so the sum keeps every rank's failures.
-  Each rank dumps only its own failed rays (the reference's per-rank
-  ``write_failures``).
+  process group of one rank per card (NCCL,
+  :mod:`~raytrace_tpu_torch.parallel.distributed`), the sum is all-reduced
+  over the ranks on the card before that readback
+  (:func:`~raytrace_tpu_torch.parallel.collectives.rank_sum_on_card`, the
+  process-mesh ``psum``); in a gloo group,
+  :func:`~raytrace_tpu_torch.parallel.collectives.host_sum_arrays` sums
+  the host copy. Every rank returns the total; the failure flags are
+  counts, so the sum keeps every rank's failures. Each rank dumps only its
+  own failed rays (the reference's per-rank ``write_failures``).
+* **Marks**: on CUDA a call records timing events (each card's start,
+  the end of each entry's first and last step, the reduction), which
+  :func:`timeline` reads once the call is finalized.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -49,13 +64,14 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.models import ray_tracer
+from raytrace_tpu_torch.ops.cuda_lib import device_guard
 from raytrace_tpu_torch.parallel import collectives, distributed
 from raytrace_tpu_torch.parallel.mesh import make_mesh
 from raytrace_tpu_torch.structures import CreateImageProblem
 from raytrace_tpu_torch.utils.timer import profiler
 
 __all__ = ["create_image_sharded", "prepare_sharded", "PreparedShardedCall",
-           "MeshRunner"]
+           "MeshRunner", "timeline"]
 
 
 class PreparedShardedCall(NamedTuple):
@@ -90,6 +106,15 @@ def prepare_sharded(problem: CreateImageProblem, mesh,
                                mesh=mesh, shards=shards)
 
 
+class _Marks(NamedTuple):
+    """A sharded call's timing events on CUDA (:func:`timeline`)."""
+
+    start: dict            # card -> its current stream at the call's start
+    first: list            # per entry: after its first step (one chunk)
+    last: list             # per entry: after its last step
+    reduce: tuple          # before and after the reduction on mesh[0]
+
+
 class _ShardedCall(NamedTuple):
     """A dispatched sharded call: each entry's ``_Call`` (device partials,
     per-ray codes) and the reduced output's readback."""
@@ -99,6 +124,8 @@ class _ShardedCall(NamedTuple):
     out: torch.Tensor      # reduced [image | I_ang | flags] f64 on the host
     done: object           # CUDA event of the readback (None on the CPU)
     tables: dict           # each device's tables, alive until finalized
+    ranks_summed: bool     # summed over the ranks on the card already
+    marks: object          # _Marks on CUDA, None on the CPU
 
 
 #: the compute stream of each (card, entry index), for the life of the
@@ -134,56 +161,113 @@ class MeshRunner:
         self.feedback = ([ray_tracer._Feedback() for _ in self.mesh]
                          if reorder else [None] * len(self.mesh))
 
+    @contextlib.contextmanager
+    def _entry(self, d: int):
+        """Entry ``d``'s device and compute stream, made current (nothing
+        on the CPU)."""
+        with device_guard(self.mesh[d]), torch.cuda.stream(self.compute[d]):
+            yield
+
     def dispatch(self, problem: CreateImageProblem) -> _ShardedCall:
-        """Enqueue every shard's chunks, the reduction on ``mesh[0]`` and
-        its readback; nothing here waits for a device."""
+        """Enqueue every shard's chunks, the entries in turns, the
+        reduction on ``mesh[0]`` (and over the ranks on the card, in a
+        group of one rank per card) and its readback; nothing here waits
+        for a device."""
         prep = prepare_sharded(problem, self.mesh, self.compute_method)
-        # one upload and seed setup per device, on its current stream; the
-        # entries' streams wait for it, and the call keeps the tables
-        # until it is finalized
+        cards = [dev for dev in dict.fromkeys(prep.mesh) if dev.type == "cuda"]
+
+        def event():
+            return torch.cuda.Event(enable_timing=True)
+
+        marks = (_Marks(start={dev: event() for dev in cards},
+                        first=[event() for _ in prep.mesh],
+                        last=[event() for _ in prep.mesh],
+                        reduce=(event(), event())) if cards else None)
+        for dev in cards:
+            marks.start[dev].record(torch.cuda.current_stream(dev))
+        # the tables packed once; one upload and seed setup per device, on
+        # its current stream; the entries' streams wait for it, and the
+        # call keeps the tables until it is finalized
+        packed = ray_tracer._pack(problem, prep.src, prep.mesh[0])
         tables, ready = {}, {}
         for dev in dict.fromkeys(prep.mesh):
-            if dev.type != "cuda":
-                tables[dev] = ray_tracer._tables(problem, prep.src, dev)
-                continue
-            with torch.cuda.device(dev):
+            with device_guard(dev):
                 tables[dev] = ray_tracer._tables(problem, prep.src, dev,
-                                                 self.io.get(dev))
-                ready[dev] = torch.cuda.Event()
-                ready[dev].record()
-        calls, parts = [], []
-        for d, (dev, sp) in enumerate(prep.shards):
-            # the tables are up already, and the partial stays on the
-            # device: no side streams
-            args = (sp, prep.method, dev, self.chunk_size, self.c, None,
-                    self.feedback[d])
-            if dev.type != "cuda":
-                call = ray_tracer._dispatch(*args, readback=False,
-                                            tables=tables[dev])
-            else:
-                with torch.cuda.device(dev), \
-                        torch.cuda.stream(self.compute[d]):
-                    self.compute[d].wait_event(ready[dev])
-                    call = ray_tracer._dispatch(*args, readback=False,
-                                                tables=tables[dev])
-                    made = torch.cuda.Event()
-                    made.record()
+                                                 self.io.get(dev), packed)
+                if dev.type == "cuda":
+                    ready[dev] = torch.cuda.Event()
+                    ready[dev].record(torch.cuda.current_stream(dev))
+        # the tables are up already, and the partial stays on the device:
+        # no side streams
+        steps = [ray_tracer._dispatch_steps(
+            sp, prep.method, dev, self.chunk_size, self.c, None,
+            self.feedback[d], readback=False, tables=tables[dev])
+            for d, (dev, sp) in enumerate(prep.shards)]
+        for d, dev in enumerate(prep.mesh):
+            if dev.type == "cuda":
+                self.compute[d].wait_event(ready[dev])
+        calls = [None] * len(steps)
+        live = list(range(len(steps)))
+        turn = 0
+        while live:
+            for d in tuple(live):
+                with self._entry(d):
+                    try:
+                        next(steps[d])
+                    except StopIteration as stop:
+                        calls[d] = stop.value
+                        live.remove(d)
+                    if turn == 0 and marks is not None:
+                        marks.first[d].record(self.compute[d])
+            turn += 1
+        for d, dev in enumerate(prep.mesh):
+            if dev.type == "cuda":
+                marks.last[d].record(self.compute[d])
                 # the reduction reads the partial on the current stream of
                 # its device (a peer copy starts there)
                 cur = torch.cuda.current_stream(dev)
-                cur.wait_event(made)
-                call.out.record_stream(cur)
-            calls.append(call)
-            parts.append(call.out)
+                cur.wait_event(marks.last[d])
+                calls[d].out.record_stream(cur)
         home = prep.mesh[0]
-        if home.type != "cuda":
-            out, done = collectives.sum_reduce(parts), None
-        else:
-            with torch.cuda.device(home):
-                out, done = ray_tracer._readback(
-                    collectives.sum_reduce(parts), home, self.io.get(home))
+        on_card = home.type == "cuda" and distributed.device_collectives()
+        with device_guard(home):
+            if marks is not None:
+                # the reduction's first mark after every entry's last, so
+                # that it times the copies and adds alone, not the wait for
+                # the slowest card
+                for last in marks.last:
+                    torch.cuda.current_stream(home).wait_event(last)
+                marks.reduce[0].record(torch.cuda.current_stream(home))
+            total = collectives.sum_reduce([c.out for c in calls])
+            if marks is not None:
+                marks.reduce[1].record(torch.cuda.current_stream(home))
+            if on_card:
+                total = collectives.rank_sum_on_card(total)
+            out, done = ray_tracer._readback(total, total.device,
+                                             self.io.get(total.device))
         return _ShardedCall(prep=prep, calls=calls, out=out, done=done,
-                            tables=tables)
+                            tables=tables, ranks_summed=on_card, marks=marks)
+
+
+def timeline(call: _ShardedCall) -> dict | None:
+    """A finalized sharded call's marks in ms, each against the start of
+    its card's current stream when the call was dispatched: per entry its
+    ``device``, ``first`` (its first chunk's kernels done) and ``last``
+    (its last step done), and the reduction's device ``reduce_ms`` (from
+    the end of the last entry). Times on one card share a clock; across
+    cards they are comparable to the spread of the start marks, which were
+    recorded in one host pass. None for a call on the CPU."""
+    m = call.marks
+    if m is None:
+        return None
+    entries = []
+    for d, dev in enumerate(call.prep.mesh):
+        start = m.start[dev]
+        entries.append(dict(device=str(dev),
+                            first=start.elapsed_time(m.first[d]),
+                            last=start.elapsed_time(m.last[d])))
+    return dict(entries=entries,
+                reduce_ms=m.reduce[0].elapsed_time(m.reduce[1]))
 
 
 def create_image_sharded(problem: CreateImageProblem, mesh,
@@ -213,7 +297,9 @@ def _finalize_sharded(call: _ShardedCall, failed_ray_path: str
     failure path and the layout contract, as ``ray_tracer._finalize``."""
     if call.done is not None:
         call.done.synchronize()
-    (host,) = collectives.host_sum_arrays([call.out.numpy()])
+    host = call.out.numpy()
+    if not call.ranks_summed:
+        (host,) = collectives.host_sum_arrays([host])
     first = call.calls[0]
     bits = ray_tracer.fail_bits(host[-ray_tracer.N_FLAGS:])
     if bits:

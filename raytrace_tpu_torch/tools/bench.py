@@ -3,6 +3,7 @@ NVIDIA GPU, in one JSON artifact.
 
     python -m raytrace_tpu_torch.tools.bench [--ase PATH] [--seed PATH]
                                              [--out PATH] [--cpu]
+                                             [--mesh N]
 
 Rows, under the root bench's key names so that the two artifacts lie side
 by side:
@@ -70,9 +71,29 @@ the checkout's output directory) and to stdout as one line; the last stdout line
 summary: the headline keys, the card's name and power limit, the commit,
 the torch and CUDA versions and the chunk size.
 
+With ``--mesh N`` the run adds, after every row above, a row
+``<row>_mesh<N>`` for ``ase_small``, ``seed_small``, ``scale64`` and
+``seed_scale4``: the same timed units through ``create_image_sharded`` on
+``make_mesh(N)`` (the first N cards; one entry a card, the reference's
+``Cuda-MultiGPU`` layout), with its s/call statistics and rays/s,
+``speedup`` (the same row's best 1-card s/call over its best mesh s/call),
+its launches per call per card, ``mem_after_<row>_mesh<N>`` (each card's
+peak over the row's sharded calls) and each call's split: ``dispatch_s``
+(host: the tables packed once and uploaded to each card, the entries'
+launches in turns, the reduction and readback enqueued), ``wait_s``
+(host: ``_finalize_sharded``), ``reduce_s`` (device: the reduction on the
+first card, peer copies and adds once every entry is done; it lies inside
+``wait_s``) and ``cards``, each entry's first and last marks (the end of
+its first chunk and of its last step) in ms against its card's start
+(``sharding.timeline``). Gates: ``<row>_mesh<N>_single_check``, the
+pristine unit's sharded image and I_ang within a relative L2 of 1e-12 of
+its 1-card call, and ``mesh<N>_golden_check``, both fixtures through the
+mesh against their goldens as ``golden_check``. Without ``--mesh`` nothing
+of this runs and the keys are as above.
+
 Without a CUDA device the tool exits non-zero unless ``--cpu`` asks for the
-CPU (the plain twins). A row that raises ends the run. Tests and
-``chip_smoke.py`` call :func:`run`.
+CPU (the plain twins; ``--mesh`` then takes N CPU entries). A row that
+raises ends the run. Tests and ``chip_smoke.py`` call :func:`run`.
 """
 
 from __future__ import annotations
@@ -94,6 +115,9 @@ from raytrace_tpu_torch.models import ray_tracer
 from raytrace_tpu_torch.models.ray_tracer import (DEFAULT_CHUNK, create_image,
                                                   create_image_stream)
 from raytrace_tpu_torch.ops import amplify_kernel, deposit_kernel, trace_kernel
+from raytrace_tpu_torch.ops.cuda_lib import device_guard
+from raytrace_tpu_torch.parallel import sharding
+from raytrace_tpu_torch.parallel.mesh import make_mesh
 from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE, fresh_problem,
                                         perturbed_problems, ray_count,
                                         synthetic_problem,
@@ -134,8 +158,12 @@ _ORDER = ("ase_small", "ase_stream", "seed_small", "seed_stream", "scale16",
 _WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
              "amplify": amplify_kernel}
 
+#: the rows that get a ``_mesh<N>`` row under ``--mesh``
+MESH_ROWS = ("ase_small", "seed_small", "scale64", "seed_scale4")
+
 GOLDEN_REL = 1e-5      # two-sided relative L2: goldens and twins
 STREAM_REL = 1e-12     # stream yields against the synchronous call
+MESH_REL = 1e-12       # a sharded call against the 1-card call
 SCALE_FLAT = 1.10      # scale64's peak allocated bytes over scale16's
 TWIN_CHUNK = 1 << 20   # the kernels' chunk, for the twins on the card
 
@@ -195,6 +223,10 @@ def _launch_counts() -> dict:
     return {n: w.launch_count for n, w in _WRAPPERS.items()}
 
 
+def _card_launches() -> dict:
+    return {n: dict(w.device_launches) for n, w in _WRAPPERS.items()}
+
+
 def _per_call(before: dict, n: int) -> dict:
     return {k: (v - before[k]) / n for k, v in _launch_counts().items()}
 
@@ -207,11 +239,13 @@ def _timed_call(ctx: _Ctx, p, split_upload: bool) -> dict:
     src = ray_tracer._validate(p)[1]
     packed = ray_tracer._pack(p, src, dev)
     t1 = time.perf_counter()
-    tables = ray_tracer._tables(p, src, dev, packed=packed)
-    if split_upload:
-        _sync(dev)
-    t2 = time.perf_counter()
-    call = ray_tracer._dispatch(p, ctx.method, dev, None, 0.5, tables=tables)
+    with device_guard(dev):
+        tables = ray_tracer._tables(p, src, dev, packed=packed)
+        if split_upload:
+            _sync(dev)
+        t2 = time.perf_counter()
+        call = ray_tracer._dispatch(p, ctx.method, dev, None, 0.5,
+                                    tables=tables)
     t3 = time.perf_counter()
     ray_tracer._finalize(call, ctx.failed_ray_path)
     t4 = time.perf_counter()
@@ -368,13 +402,78 @@ def _stream_row(ctx: _Ctx, name: str, source, scale, n_units: int,
     return row
 
 
-def _golden(ctx: _Ctx, path: str) -> dict:
-    """The call against a snapshot's embedded golden."""
+def _mesh_call(ctx: _Ctx, runner, p) -> dict:
+    """One sharded call through the sharded path's own stages (what
+    ``create_image_sharded`` runs), with its split and marks."""
+    t0 = time.perf_counter()
+    call = runner.dispatch(p)
+    t1 = time.perf_counter()
+    sharding._finalize_sharded(call, ctx.failed_ray_path)
+    t2 = time.perf_counter()
+    c = {"total_s": t2 - t0, "dispatch_s": t1 - t0, "wait_s": t2 - t1}
+    marks = sharding.timeline(call)
+    if marks is not None:
+        c.update(reduce_s=marks["reduce_ms"] / 1e3, cards=marks["entries"])
+    return c
+
+
+def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
+              salt: int, single_best: float | None) -> dict:
+    """``name``'s units through ``create_image_sharded`` on ``mesh``: the
+    pristine unit against its 1-card call, then the 1-card row's ``n``
+    timed units."""
+    prefix = f"{name}_mesh{len(mesh)}_"
+    cards = [d for d in dict.fromkeys(mesh) if d.type == "cuda"]
+    runner = sharding.MeshRunner(mesh, ctx.method)
+    single = create_image(fresh_problem(source, scale), ctx.method,
+                          device=ctx.dev, failed_ray_path=ctx.failed_ray_path)
+    # the peaks of the sharded calls alone
+    for dev in cards:
+        _reset_peak(dev)
+    pristine = fresh_problem(source, scale)
+    t0 = time.perf_counter()
+    got = sharding._finalize_sharded(runner.dispatch(pristine),
+                                     ctx.failed_ray_path)
+    warmup_s = time.perf_counter() - t0
+    rel = max(_rel(got[0], single[0]), _rel(got[1], single[1]))
+    probs = perturbed_problems(source, n, salt=salt, scale=scale)
+    before, before_cards = _launch_counts(), _card_launches()
+    calls = [_mesh_call(ctx, runner, p) for p in probs]
+    after_cards = _card_launches()
+    row = _row_stats(prefix, [c["total_s"] for c in calls],
+                     ray_count(pristine))
+    best = row[f"{prefix}best_seconds_per_call"]
+    row.update({
+        f"{prefix}calls": calls, f"{prefix}warmup_s": warmup_s,
+        f"{prefix}devices": [str(d) for d in mesh],
+        f"{prefix}speedup": None if single_best is None
+        else single_best / best,
+        f"{prefix}launches_per_call": _per_call(before, n),
+        f"{prefix}launches_per_card": {
+            k: {str(d): (v - before_cards[k].get(d, 0)) / n
+                for d, v in after_cards[k].items()
+                if v != before_cards[k].get(d, 0)}
+            for k in after_cards},
+        f"{prefix}rel_vs_single": rel,
+        f"{prefix}single_check": rel <= MESH_REL,
+        f"mem_after_{name}_mesh{len(mesh)}": (
+            {str(d): _memory(d) for d in cards} if cards
+            else _memory(mesh[0]))})
+    return row
+
+
+def _golden(ctx: _Ctx, path: str, mesh=None) -> dict:
+    """The call (on ``mesh``, when given, the sharded call) against a
+    snapshot's embedded golden."""
     p, image0, i_ang0 = load_input(path)
     if image0 is None or len(image0) == 0:
         return {"ok": None, "unavailable": "no embedded golden"}
-    image, i_ang = create_image(p, ctx.method, device=ctx.dev,
-                                failed_ray_path=ctx.failed_ray_path)
+    if mesh is None:
+        image, i_ang = create_image(p, ctx.method, device=ctx.dev,
+                                    failed_ray_path=ctx.failed_ray_path)
+    else:
+        image, i_ang = sharding.create_image_sharded(
+            p, mesh, ctx.method, failed_ray_path=ctx.failed_ray_path)
     r_img, r_ang = _rel(image, image0), _rel(i_ang, i_ang0)
     ok = (check_ans(image0, i_ang0, image, i_ang, verbose=False)
           and r_img < GOLDEN_REL and r_ang < GOLDEN_REL)
@@ -391,11 +490,12 @@ def _git_commit() -> str:
 
 
 def _card_line(dev):
-    """The card's name and power limit as nvidia-smi reports them (None on
-    the CPU)."""
+    """The card's name and power limit as nvidia-smi reports them (the
+    first card's for ``cuda`` without an index; None on the CPU)."""
     if dev.type != "cuda":
         return None
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    card = [] if dev.index is None else [f"--id={dev.index}"]
+    r = subprocess.run(["nvidia-smi", *card, "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
@@ -407,7 +507,7 @@ def _log(msg: str) -> None:
 
 def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
         stream_rounds=STREAM_ROUNDS, twins=TWINS, ase=None, seed=None,
-        out_dir=os.path.dirname(DEFAULT_OUT)) -> dict:
+        out_dir=os.path.dirname(DEFAULT_OUT), mesh=None) -> dict:
     """Run the bench's rows on ``device``; returns the artifact.
 
     ``shapes``: the ASE and seeded ``synthetic_problem`` shapes;
@@ -416,7 +516,10 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
     each row, a row left out is not run; ``twins``: the synchronous rows
     held against the plain twins; ``ase`` / ``seed``: snapshot paths that
     replace the synthetic sources; ``out_dir``: where a failing call's
-    failed-ray dump goes. Raises whatever a row raises.
+    failed-ray dump goes; ``mesh``: N for the ``_mesh<N>`` rows of
+    :data:`MESH_ROWS` (each with its 1-card row in ``reps``) on
+    ``make_mesh(N)``, or on N CPU entries for a CPU ``device``. Raises
+    whatever a row raises.
     """
     dev = torch.device(device)
     ctx = _Ctx(dev, "cuda" if dev.type == "cuda" else "cpu",
@@ -470,6 +573,30 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
             _log(f"{name}: best {res[f'{name}_best_seconds_per_call']} "
                  f"s/call, against sync {res[f'{name}_max_rel_vs_sync']}")
 
+    if mesh is not None:
+        cards = (make_mesh(mesh) if dev.type == "cuda"
+                 else make_mesh(devices=(dev,) * mesh))
+        res["mesh_devices"] = [str(d) for d in cards]
+        res["mesh_cards"] = [_card_line(d) for d in dict.fromkeys(cards)]
+        mesh_goldens = {name: _golden(ctx, os.path.join(FIXTURES, name),
+                                      cards)
+                        for name in ("golden_ase.dat", "golden_seed.dat")}
+        res[f"mesh{mesh}_golden_checks"] = mesh_goldens
+        res[f"mesh{mesh}_golden_check"] = all(
+            g["ok"] is not False for g in mesh_goldens.values())
+        for name in MESH_ROWS:
+            if name not in reps:
+                continue
+            seeded, si, salt = _ROWS[name]
+            res.update(_mesh_row(
+                ctx, name, cards, sources[seeded],
+                None if si is None else scales[si], reps[name], salt,
+                res.get(f"{name}_best_seconds_per_call")))
+            p = f"{name}_mesh{mesh}_"
+            _log(f"{p[:-1]}: best {res[p + 'best_seconds_per_call']} "
+                 f"s/call, speedup {res[p + 'speedup']}, against 1 card "
+                 f"{res[p + 'rel_vs_single']}")
+
     if "ase_small_best_seconds_per_call" in res:
         res.update({"metric": "ase_small_rays_per_sec",
                     "value": res["ase_small_rays_per_sec"], "unit": "rays/s"})
@@ -489,6 +616,10 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
              "scale_flat_check": flat}
     gates.update({k: v for k, v in res.items()
                   if k.endswith(("_cross_backend_check", "_sync_check"))})
+    if mesh is not None:
+        gates.update({k: v for k, v in res.items()
+                      if k.endswith("_single_check")
+                      or k == f"mesh{mesh}_golden_check"})
     res["gates"] = gates
     res["gates_not_evaluated"] = sorted(k for k, v in gates.items()
                                         if v is None)
@@ -522,6 +653,9 @@ def main(argv=None) -> int:
                     help="the full artifact's path (default: %(default)s)")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain twins on the CPU")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="also time the sharded call on make_mesh(N) "
+                    "(rows <row>_mesh<N>)")
     args = ap.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device (--cpu runs the plain twins "
@@ -529,7 +663,8 @@ def main(argv=None) -> int:
     res = run("cpu" if args.cpu else "cuda", shapes=SHAPES, scales=SCALES,
               reps=REPS, stream_rounds=STREAM_ROUNDS, twins=TWINS,
               ase=args.ase, seed=args.seed,
-              out_dir=os.path.dirname(os.path.abspath(args.out)))
+              out_dir=os.path.dirname(os.path.abspath(args.out)),
+              mesh=args.mesh)
     full = json.dumps(res)
     with open(args.out, "w") as f:
         f.write(full + "\n")

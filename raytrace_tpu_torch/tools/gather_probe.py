@@ -17,8 +17,9 @@ with CUDA events and differenced, so the launch cost cancels; the best of
 dependent step, and the card's name. Needs a CUDA device.
 
 :func:`gather_probe` dispatches on the device: CPU tensors take the plain
-twin :func:`gather_probe_plain`, CUDA tensors launch the kernel (or raise).
-``launch_count`` counts kernel launches.
+twin :func:`gather_probe_plain`, CUDA tensors launch the kernel (or raise)
+on their own card. ``launch_count`` counts kernel launches,
+``device_launches`` them per device.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from raytrace_tpu_torch.ops import cuda_lib
 
 __all__ = ["gather_probe", "gather_probe_plain", "probe_inputs", "measure",
-           "launch_count", "main"]
+           "launch_count", "device_launches", "main"]
 
 ROW = 128
 #: differenced step counts (tools/vpu_probe.py:39)
@@ -40,6 +41,8 @@ K1, K2 = 100_000, 1_000_000
 
 #: kernel launches since import (or since a caller last reset it)
 launch_count = 0
+#: the same launches per device
+device_launches: dict = {}
 
 
 def probe_inputs(rows: int = 8, seed: int = 1):
@@ -87,6 +90,7 @@ def gather_probe(tab: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
     out = _launch(cuda_lib.load_library(), tab, idx, K, stream)
     global launch_count
     launch_count += 1
+    cuda_lib.count_launch(device_launches, tab.device)
     return out
 
 
@@ -94,8 +98,10 @@ def _launch(lib, tab, idx, K, stream) -> torch.Tensor:
     """Launch ``rt_gather_probe`` of ``lib`` on ``stream``; inputs already
     checked."""
     out = torch.empty_like(tab)
-    rc = lib.rt_gather_probe(tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                             tab.numel(), int(K), 1, stream)
+    with cuda_lib.device_guard(tab.device):
+        rc = lib.rt_gather_probe(tab.data_ptr(), idx.data_ptr(),
+                                 out.data_ptr(), tab.numel(), int(K), 1,
+                                 stream)
     cuda_lib.check(rc, "rt_gather_probe")
     return out
 

@@ -26,7 +26,10 @@ reference's.
 
 Ranks run on the card, ``cuda:(rank % device count)``, unless
 ``RAYTRACE_FORCE_CPU=1`` asks for the CPU; without a card and without that
-variable a rank raises. Rank 0 prints every rank's device.
+variable a rank raises. The group's backend follows the layout
+(``distributed.backend_for``: gloo and NCCL with a card for every rank,
+else gloo; the loop's reduction is of host buffers either way). Rank 0
+prints the backend and every rank's device.
 
 Usage:
     python raytrace_tpu_torch/tools/production_loop.py            # one process
@@ -88,8 +91,9 @@ def main() -> int:
 
     if len(sys.argv) == 4:
         pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-        distributed.startup(coordinator_address=f"localhost:{port}",
-                            num_processes=nproc, process_id=pid)
+        distributed.startup(
+            coordinator_address=f"localhost:{port}", num_processes=nproc,
+            process_id=pid, cpu=os.environ.get("RAYTRACE_FORCE_CPU") == "1")
         try:
             rc = run()
             distributed.barrier()

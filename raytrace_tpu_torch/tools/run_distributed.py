@@ -10,9 +10,12 @@ and per-rank timings are all-gathered (src/MPI_helpers.h:34-38). Each rank
 also runs a sharded call on a local mesh of 2 entries, so the reduction
 spans ranks and local devices together (2P shards).
 
-The ranks join a gloo group; they run on the card (``cuda:(rank % device
-count)``, both mesh entries on it) unless ``RAYTRACE_FORCE_CPU=1`` asks for
-the CPU; without a card and without that variable a rank raises.
+The ranks run on the card (``cuda:(rank % device count)``, both mesh
+entries on it) unless ``RAYTRACE_FORCE_CPU=1`` asks for the CPU; without a
+card and without that variable a rank raises. With a card for every rank
+they join gloo and NCCL, and the sharded call's image is summed over the
+ranks on the cards; otherwise gloo alone
+(``distributed.backend_for``).
 
 Usage (one invocation per process, see tests/test_torch_distributed.py):
     python raytrace_tpu_torch/tools/run_distributed.py <pid> <nproc> <port>
@@ -35,8 +38,9 @@ def main() -> int:
     from raytrace_tpu_torch.parallel.sharding import create_image_sharded
     from raytrace_tpu_torch.testing import synthetic_problem
 
+    cpu = os.environ.get("RAYTRACE_FORCE_CPU") == "1"
     distributed.startup(coordinator_address=f"localhost:{port}",
-                        num_processes=nproc, process_id=pid)
+                        num_processes=nproc, process_id=pid, cpu=cpu)
     ok = True
 
     def check(name, cond):
@@ -48,8 +52,7 @@ def main() -> int:
     try:
         check("rank_size", distributed.rank() == pid
               and distributed.size() == nproc)
-        dev = distributed.rank_device(
-            os.environ.get("RAYTRACE_FORCE_CPU") == "1")
+        dev = distributed.rank_device(cpu)
 
         # --- gather_all: per-rank timings, distinct values per rank ---------
         t0 = time.perf_counter()

@@ -34,13 +34,17 @@ Usage (the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
                            without -methods when more than one card is
                            visible (the reference's Cuda-MultiGPU)
       -nprocs=P            spawn a local group of P processes (the
-                           ``mpirun -np P`` analogue, Readme.txt:43), joined
-                           by gloo. Each rank runs the whole benchmark;
-                           timings are all-gathered and errors summed across
-                           ranks, as the reference's MPI protocol does, and
-                           rank 0 prints. Ranks run on the card
+                           ``mpirun -np P`` analogue, Readme.txt:43). Each
+                           rank runs the whole benchmark; timings are
+                           all-gathered and errors summed across ranks, as
+                           the reference's MPI protocol does, and rank 0
+                           prints. Ranks run on the card
                            (cuda:(rank % device count), CUDA processes can
-                           share one) unless -methods=cpu asks for the CPU
+                           share one) unless -methods=cpu asks for the CPU.
+                           With a card for every rank the group is
+                           gloo and NCCL (a sharded call's image is summed
+                           over the ranks on the cards), else gloo alone;
+                           rank 0 prints which
 
 Per file and method: a warmup call (it also builds the kernels; the
 reference's GPU warmup fixture, CreateImage.cpp:118-132), ``iterations``
@@ -359,7 +363,9 @@ def main(argv=None) -> int:
         # a rank of the launcher's group (the MPI_Init of
         # src/MPI_helpers.h:9-11); the ranks share the host's cores unless
         # OMP_NUM_THREADS says how many each takes
-        distributed.startup()
+        methods = options.methods or available_methods()
+        distributed.startup(cpu=all(resolve_method(m)[1].type != "cuda"
+                                    for m in methods))
         if "OMP_NUM_THREADS" not in os.environ:
             torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                       // distributed.size()))

@@ -167,3 +167,53 @@ def test_a_row_that_raises_fails_the_run(monkeypatch, tmp_path):
         bench.run("cpu", shapes=SHAPES, scales=SCALES,
                   reps={"ase_small": 1}, stream_rounds={},
                   out_dir=str(tmp_path))
+
+
+@pytest.fixture(scope="module")
+def mesh_artifact(tmp_path_factory):
+    return bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                     reps={k: 2 for k in bench.MESH_ROWS}, stream_rounds={},
+                     twins=(), out_dir=str(tmp_path_factory.mktemp("mesh")),
+                     mesh=4)
+
+
+@pytest.mark.parametrize("row", bench.MESH_ROWS)
+def test_mesh_rows(mesh_artifact, row):
+    """``--mesh 4`` adds ``<row>_mesh4``: the row's units through the
+    sharded call on 4 entries, held against the 1-card call, with its
+    speedup over the 1-card row and each call's split."""
+    p = f"{row}_mesh4_"
+    for k in SYNC_KEYS + ("n_rays", "speedup", "launches_per_call",
+                          "launches_per_card", "rel_vs_single", "devices"):
+        assert p + k in mesh_artifact, p + k
+    assert mesh_artifact[p + "n_rays"] == mesh_artifact[f"{row}_n_rays"]
+    assert mesh_artifact[p + "single_check"] is True
+    assert mesh_artifact[p + "rel_vs_single"] <= bench.MESH_REL
+    assert mesh_artifact[p + "speedup"] == pytest.approx(
+        mesh_artifact[f"{row}_best_seconds_per_call"]
+        / mesh_artifact[p + "best_seconds_per_call"])
+    assert mesh_artifact[p + "devices"] == ["cpu"] * 4
+    assert mesh_artifact[f"mem_after_{row}_mesh4"] == {"unavailable": "cpu"}
+    for c in mesh_artifact[p + "calls"]:
+        # the CPU has no timing events: no reduce_s, no per-card marks
+        assert set(c) == {"total_s", "dispatch_s", "wait_s"}
+        assert c["dispatch_s"] + c["wait_s"] == pytest.approx(c["total_s"],
+                                                              rel=1e-9)
+    assert mesh_artifact["gates"][p + "single_check"] is True
+
+
+def test_mesh_goldens_and_gates(mesh_artifact, artifact):
+    assert mesh_artifact["mesh4_golden_check"] is True
+    assert mesh_artifact["gates"]["mesh4_golden_check"] is True
+    assert mesh_artifact["gates_ok"] is True
+    # without --mesh no key of the mesh rows appears
+    assert not [k for k in artifact if "mesh" in k]
+
+
+def test_failed_mesh_gate_sets_gates_ok(monkeypatch, tmp_path):
+    monkeypatch.setattr(bench, "MESH_REL", -1.0)
+    res = bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                    reps={"ase_small": 1}, stream_rounds={}, twins=(),
+                    out_dir=str(tmp_path), mesh=2)
+    assert res["ase_small_mesh2_single_check"] is False
+    assert res["gates_ok"] is False

@@ -336,3 +336,71 @@ def test_sharded_stream_on_card(cuda, reorder):
     for (gi, ga), (wi, wa) in zip(got, want):
         assert np.linalg.norm(gi - wi) <= 1e-12 * np.linalg.norm(wi)
         assert np.linalg.norm(ga - wa) <= 1e-12 * np.linalg.norm(wa)
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the multi-card path")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_single_call_on_cuda1_with_cuda0_current(two_cards, seeded):
+    """A call on cuda:1 with cuda:0 current launches on cuda:1 (its
+    per-device counts) and leaves cuda:0 current. B1's per-ray outputs are
+    bitwise equal to cuda:0's on the same rays; the image is within 1e-12
+    of cuda:0's call (B2's f64 atomics add in an order that changes from
+    call to call, on one card as across cards)."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.testing import source_rays
+
+    torch.cuda.set_device(0)
+    p = synthetic_problem(seeded=seeded)
+    method = 2 if seeded else 1
+    res = {}
+    for dev in two_cards[:2]:
+        rays = source_rays(p, 4096, dev)
+        res[dev.index] = trace_kernel.trace_batch(
+            rays, p.N, p.euv_beam.dz, prepare_gain(p.gain, dev), method,
+            use_emis=not seeded)
+    for f in res[0]._fields:
+        assert torch.equal(getattr(res[0], f).cpu(), getattr(res[1], f).cpu())
+    want = create_image(synthetic_problem(seeded=seeded), "cuda",
+                        device="cuda:0")
+    before = {w: dict(w.device_launches)
+              for w in (trace_kernel, deposit_kernel, amplify_kernel)}
+    got = create_image(synthetic_problem(seeded=seeded), "cuda",
+                       device="cuda:1")
+    assert torch.cuda.current_device() == 0
+    for w in (trace_kernel, deposit_kernel) + (
+            (amplify_kernel,) if seeded else ()):
+        assert (w.device_launches.get(two_cards[1], 0)
+                > before[w].get(two_cards[1], 0))
+        assert (w.device_launches.get(two_cards[0], 0)
+                == before[w].get(two_cards[0], 0))
+    for g, w in zip(got, want):
+        assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_sharded_on_every_card_matches_single(two_cards, seeded):
+    """create_image_sharded on make_mesh(), one entry a card: within 1e-12
+    of the single call, and B1, B2 (and, seeded, B3) launched on every
+    card."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+
+    want = create_image(synthetic_problem(seeded=seeded), "cuda",
+                        device="cuda:0")
+    kernels = (trace_kernel, deposit_kernel) + (
+        (amplify_kernel,) if seeded else ())
+    before = {w: dict(w.device_launches) for w in kernels}
+    got = create_image_sharded(synthetic_problem(seeded=seeded), make_mesh(),
+                               "cuda")
+    for w in kernels:
+        for dev in two_cards:
+            assert w.device_launches.get(dev, 0) > before[w].get(dev, 0)
+    for g, w in zip(got, want):
+        assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
