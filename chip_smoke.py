@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (and, where a
 host has several, on all of them).
 
-    python3 chip_smoke.py              # phases 1-10, and 11 on 2+ cards
+    python3 chip_smoke.py              # phases 1-10 and 12, 11 on 2+ cards
     python3 chip_smoke.py --multicard  # the build and phase 11 alone
 
 Drives ``raytrace_tpu_torch``'s ``create_image`` main path, its
@@ -39,9 +39,10 @@ fails (non-zero exit, no result line) if any phase fails:
    (``check_ans`` at 5e-6 and a two-sided relative L2 below 1e-5 against
    the embedded golden), then the two shipped-shape synthetics (ASE
    60x25x19x14 = 399,000 rays, nv 52; seeded 120x25x51x51 = 7,803,000
-   rays, nv 82; N 3, 106x26 gain grid) with one warmup and three timed
-   calls each, the launches of each kernel in one call counted; B1, B2
-   and B3 must have launched in this run;
+   rays, nv 82; N 3, 106x26 gain grid) with one warmup (which captures
+   the call's CUDA graph; its memory pool is printed) and three timed
+   calls (graph replays) each, the launches of each kernel in one call
+   counted; B1, B2 and B3 must have launched in this run;
 5. with the counts at 0 again: ``create_image_stream`` at depth 2 over 4
    ASE and then 4 seeded shipped-shape units with distinct gain tables,
    without and with the reorder; every yield within 1e-12 relative L2 of
@@ -113,9 +114,12 @@ fails (non-zero exit, no result line) if any phase fails:
    1e-16: B2's f64 atomics), cuda:0 still current; both fixtures sharded
    on the cards against their goldens; the bench's ``ase_small``,
    ``seed_small``, ``scale64`` and ``seed_scale4`` on one card and on the
-   cards (``tools/bench.run`` with ``mesh``): every gate, each within
-   1e-12 of the 1-card call, the s/call and the ratio, each card's peak
-   memory, first and last marks and the reduction's device time; the
+   cards (``tools/bench.run`` with ``mesh``), once with every call run
+   from Python (``eager``) and once through the graphs: every gate, each
+   within 1e-12 of the 1-card call, the s/call and the ratio, the
+   dispatch, the busy share, each entry's capture and kernel nodes, each
+   card's peak memory, first and last marks and the reduction's device
+   time; the
    mesh stream at depth 2 within 1e-12 of the sharded call; the device
    time per kernel of each shipped shape on one card and on the cards;
    then as subprocesses the CLI's ``-multichip``, its group of one rank per
@@ -123,7 +127,28 @@ fails (non-zero exit, no result line) if any phase fails:
    and NCCL) on both fixtures and both shipped shapes, the rank harness
    ``tools/run_distributed.py`` and the production loop on one rank per
    card against one rank. Every card must launch B1 and B2, and B3 on a
-   seeded call, by the wrappers' per-device counts.
+   seeded call, by the wrappers' per-device counts;
+12. with the counts at 0 again (run before phase 11), the prepared
+   whole-call pipeline (``prepare_pipeline``: a CUDA graph of each call,
+   captured once per config and replayed; a replay adds the launches it
+   captured to the wrappers' counts): on ``ase_small``, ``seed_small``,
+   ``scale16`` and ``seed_scale4``, from an empty cache, three units with
+   different tables through ``create_image``, one capture and three
+   replays, each within 1e-12 relative L2 of its eager call (the chunk
+   loop from Python, ``eager=True``); both fixtures through a fresh graph
+   against their goldens as in phase 4; the stream at depth 2 and 4, with
+   and without the reorder, over 6 units with tables all different of each
+   shipped shape, a graph per call in flight, every yield within 1e-12 of
+   its unit's eager call; a failing problem through the graph of a good
+   one's config: it raises, dumps the eager call's rays, and the graph's
+   next replay is right; the mesh entries' graphs against the entries'
+   eager turns (the dispatch before the graphs) on two entries of
+   ``cuda:0`` and, on two or more cards, on ``make_mesh()``, within 1e-12;
+   then the bench's four
+   rows in this run eager and through the graphs (both fixtures' goldens,
+   every gate): s/call, the dispatch, the device time and busy share, the
+   warm-up call and the capture, kernel nodes, pool and peak memory. B1,
+   B2 and B3 must have launched.
 
 Prints one JSON line of per-kernel results, every card's line, and as its
 last line ``{"ok": true, "device": {...}}``; ``--multicard`` prints no
@@ -669,6 +694,7 @@ def check_output(image, i_ang, p):
 
 def phase_main_path():
     from raytrace_tpu_torch import check_ans, create_image, load_input
+    from raytrace_tpu_torch.models import ray_tracer
     from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
                                             synthetic_problem)
 
@@ -705,16 +731,19 @@ def phase_main_path():
                     n: w.launch_count - before[n]
                     for n, w in WRAPPERS.items()}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        pool_gib = sum(g.pool_bytes for g in ray_tracer.prepare_pipeline(
+            p, "cuda", "cuda").pipeline.graphs) / 2 ** 30
         check_output(image, i_ang, p)
         best = min(times)
-        print(f"{name} shipped shape ({rays} rays): warmup {warm:.4f} s, "
-              f"s/call {[round(t, 5) for t in times]}, best {best:.5f} s, "
-              f"{rays / best:.4e} rays/s, peak device memory "
-              f"{peak_gib:.3f} GiB; launches per call "
+        print(f"{name} shipped shape ({rays} rays): warmup and capture "
+              f"{warm:.4f} s, s/call {[round(t, 5) for t in times]}, best "
+              f"{best:.5f} s, {rays / best:.4e} rays/s, the graph's memory "
+              f"pool {pool_gib:.3f} GiB (allocated beside it by the replays "
+              f"{peak_gib:.3f} GiB); launches per call "
               f"{LAUNCHES_PER_CALL[name]}", flush=True)
         record[f"{name}_call"] = dict(rays=rays, warmup_s=warm,
                                       times_s=times, rays_per_s=rays / best,
-                                      peak_gib=peak_gib)
+                                      peak_gib=peak_gib, pool_gib=pool_gib)
         outs[name] = (p, image, i_ang)
     return outs
 
@@ -888,9 +917,11 @@ def production_loops(nprocs=2, extra=()):
 
 def profile_calls(fn, n=3):
     """``(device ms, kernel launches, {kernel: device ms})`` per call of
-    ``fn`` over ``n`` calls under torch.profiler."""
+    ``fn`` over ``n`` calls under torch.profiler, after one call outside it
+    (a first call of a config captures its graph)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
@@ -1304,6 +1335,279 @@ def phase_medium():
         fail(f"medium-scale path: gates {res['gates']}")
 
 
+#: phase 12's bench rows, each timed eager and through its graph (calls)
+PREPARED_REPS = {"ase_small": 3, "seed_small": 3, "scale16": 3,
+                 "seed_scale4": 3}
+#: a graph replay against the eager call on the same unit: B2's f64
+#: atomics add in an order that changes from call to call
+PREPARED_REL = 1e-12
+
+
+def eager_call(p, device=DEV):
+    """``p``'s call run from Python on the card, its launches uncounted:
+    the reference a graph replay is held against."""
+    from raytrace_tpu_torch.models import ray_tracer
+
+    def call():
+        prep = ray_tracer.prepare_pipeline(p, "cuda", device, eager=True)
+        return ray_tracer._finalize_call(
+            p, prep, prep.pipeline(*prep.operands),
+            os.path.join(OUT_DIR, "eager_failed_rays.dat"))
+    return uncounted(call)
+
+
+def worst_rel(got, want):
+    return max(max(rel_l2(g[0], w[0]), rel_l2(g[1], w[1]))
+               for g, w in zip(got, want))
+
+
+def row_source(name):
+    """A bench row's source and ``-scale=``."""
+    from raytrace_tpu_torch.testing import synthetic_problem
+    from raytrace_tpu_torch.tools import bench
+
+    seeded, si, _salt = bench._ROWS[name]
+    return (functools.partial(synthetic_problem, **bench.SHAPES[seeded]),
+            None if si is None else bench.SCALES[si])
+
+
+def prepared_replays():
+    """Per row: an empty cache, then three units of the row's shape with
+    different tables through ``create_image``: one capture, three replays
+    of that graph, each within ``PREPARED_REL`` of its eager call."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    out = {}
+    for name in PREPARED_REPS:
+        source, scale = row_source(name)
+        ray_tracer.clear_pipeline_cache()
+        want = [eager_call(u) for u in perturbed_problems(source, 3, salt=61,
+                                                          scale=scale)]
+        units = perturbed_problems(source, 3, salt=61, scale=scale)
+        got = [launched(f"{name} replay", path_kernels_of(u), create_image,
+                        u, "cuda", device=DEV) for u in units]
+        for u, (image, i_ang) in zip(units, got):
+            check_output(image, i_ang, u)
+        rel = worst_rel(got, want)
+        pipe = ray_tracer.prepare_pipeline(units[0], "cuda", DEV).pipeline
+        if (rel > PREPARED_REL or len(pipe.graphs) != 1
+                or pipe.graphs[0].in_flight):
+            fail(f"{name}: graph replays rel L2 {rel} against eager, "
+                 f"{len(pipe.graphs)} graphs")
+        g = pipe.graphs[0]
+        print(f"{name} through its graph: 3 replays of one capture, rel L2 "
+              f"against the eager calls <= {rel:.3e}; {g.nodes} nodes",
+              flush=True)
+        out[name] = dict(rel=rel, nodes=g.nodes)
+    return out
+
+
+def prepared_goldens():
+    """Both fixtures through a fresh graph against their goldens."""
+    from raytrace_tpu_torch import check_ans, create_image, load_input
+    from raytrace_tpu_torch.models import ray_tracer
+
+    out = {}
+    for name in ("golden_ase.dat", "golden_seed.dat"):
+        ray_tracer.clear_pipeline_cache()
+        p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
+        image, i_ang = create_image(p, "cuda", device=DEV)
+        pipe = ray_tracer.prepare_pipeline(p, "cuda", DEV).pipeline
+        r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
+        if (not check_ans(image0, i_ang0, image, i_ang) or r_img >= 1e-5
+                or r_ang >= 1e-5 or len(pipe.graphs) != 1):
+            fail(f"{name} through its graph: rel L2 image {r_img} I_ang "
+                 f"{r_ang}, {len(pipe.graphs)} graphs")
+        print(f"{name} through its graph: check_ans ok, rel L2 image "
+              f"{r_img:.3e} I_ang {r_ang:.3e}", flush=True)
+        out[name] = dict(rel_image=r_img, rel_iang=r_ang)
+    return out
+
+
+def prepared_streams():
+    """The stream at depth 2 and 4 over units with tables all different,
+    a graph per call in flight, every yield within ``PREPARED_REL`` of its
+    unit's eager call; with and without the reorder."""
+    from raytrace_tpu_torch import create_image_stream
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    out = {}
+    for name in ("ase_small", "seed_small"):
+        source, scale = row_source(name)
+        for depth in (2, 4):
+            for reorder in (False, True):
+                ray_tracer.clear_pipeline_cache()
+                salt = 70 + depth + 10 * reorder
+                want = [eager_call(u) for u in perturbed_problems(
+                    source, 6, salt=salt, scale=scale)]
+                units = perturbed_problems(source, 6, salt=salt, scale=scale)
+                t0 = time.perf_counter()
+                got = launched(f"{name} stream", path_kernels_of(units[0]),
+                               lambda: list(create_image_stream(
+                                   units, "cuda", device=DEV, depth=depth,
+                                   reorder=reorder)))
+                dt = (time.perf_counter() - t0) / len(units)
+                rel = worst_rel(got, want)
+                pipe = ray_tracer.prepare_pipeline(
+                    units[0], "cuda", DEV, reorder=reorder).pipeline
+                if (len(got) != 6 or rel > PREPARED_REL
+                        or len(pipe.graphs) != depth
+                        or any(g.in_flight for g in pipe.graphs)):
+                    fail(f"{name} stream depth {depth} reorder {reorder}: "
+                         f"{len(got)} yields, rel L2 {rel}, "
+                         f"{len(pipe.graphs)} graphs")
+                print(f"{name} stream depth {depth} reorder {reorder}: "
+                      f"{depth} graphs, 6 units, rel L2 against the eager "
+                      f"calls <= {rel:.3e}; {dt:.5f} s/unit with the "
+                      f"captures", flush=True)
+                out[f"{name}_depth{depth}_reorder{int(reorder)}"] = dict(
+                    rel=rel, s_per_unit=dt)
+    return out
+
+
+def prepared_failure():
+    """A failing problem through the graph raises and dumps the eager
+    call's rays; the graph is then free, and its next replay (a good
+    problem of the same config) is right."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import synthetic_problem
+    from raytrace_tpu_torch.utils.errors import RayTraceError, read_failures
+
+    ray_tracer.clear_pipeline_cache()
+    create_image(synthetic_problem(), "cuda", device=DEV)
+    dumps = {}
+    for how in ("graph", "eager"):
+        # angles beyond 1.5 rad: every ray perpendicular (error -1); the
+        # config, and so the graph, is the good problem's
+        p = synthetic_problem()
+        p.euv_beam.a = p.euv_beam.a + 1500.0
+        dumps[how] = os.path.join(OUT_DIR, f"failed_{how}.dat")
+        try:
+            if how == "graph":
+                create_image(p, "cuda", device=DEV,
+                             failed_ray_path=dumps[how])
+            else:
+                prep = ray_tracer.prepare_pipeline(p, "cuda", DEV,
+                                                   eager=True)
+                ray_tracer._finalize_call(p, prep,
+                                          prep.pipeline(*prep.operands),
+                                          dumps[how])
+        except RayTraceError:
+            pass
+        else:
+            fail(f"failing problem ({how}): no RayTraceError")
+    rays = {h: read_failures(path)[0] for h, path in dumps.items()}
+    want = eager_call(synthetic_problem())
+    got = create_image(synthetic_problem(), "cuda", device=DEV)
+    pipe = ray_tracer.prepare_pipeline(synthetic_problem(), "cuda",
+                                       DEV).pipeline
+    rel = worst_rel([got], [want])
+    if not (len(rays["graph"]) > 0
+            and np.array_equal(rays["graph"], rays["eager"])
+            and len(pipe.graphs) == 1 and rel <= PREPARED_REL):
+        fail(f"failure through the graph: {len(rays['graph'])} rays dumped, "
+             f"the eager call's {np.array_equal(rays['graph'], rays['eager'])}"
+             f"; {len(pipe.graphs)} graphs; the next replay rel L2 {rel}")
+    print(f"failing problem through the graph: raised, {len(rays['graph'])} "
+          f"rays dumped, the eager call's; the graph's next replay within "
+          f"{rel:.3e} of its eager call", flush=True)
+    return dict(rays=len(rays["graph"]), next_rel=rel)
+
+
+def prepared_meshes():
+    """The mesh entries' graphs against the entries' chunk loops in turns
+    (``MeshRunner(eager=True)``, the dispatch before the graphs): two
+    entries on cuda:0, and every card on two or more; three units of each
+    shipped shape, each within ``PREPARED_REL``."""
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.parallel import sharding
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    meshes = {"2 entries on cuda:0": make_mesh(devices=("cuda:0", "cuda:0"))}
+    if torch.cuda.device_count() >= 2:
+        meshes["make_mesh()"] = make_mesh()
+    out = {}
+    for what, mesh in meshes.items():
+        for name in ("ase_small", "seed_small"):
+            source, scale = row_source(name)
+            ray_tracer.clear_pipeline_cache()
+
+            def run(eager, units):
+                runner = sharding.MeshRunner(mesh, "cuda", eager=eager)
+                return [sharding._finalize_sharded(runner.dispatch(u),
+                                                   "unused.dat")
+                        for u in units]
+            want = uncounted(run, True, perturbed_problems(source, 3,
+                                                           salt=83))
+            units = perturbed_problems(source, 3, salt=83)
+            got = launched(f"{name} mesh graphs on {what}",
+                           path_kernels_of(units[0]), run, False, units)
+            rel = worst_rel(got, want)
+            prep = sharding.prepare_sharded(units[0], mesh, "cuda")
+            n = [len(p.graphs) for p in prep.pipeline]
+            if rel > PREPARED_REL or n != [1] * len(mesh):
+                fail(f"{name} mesh graphs on {what}: rel L2 {rel} against "
+                     f"the eager turns, graphs per entry {n}")
+            print(f"{name} mesh graphs on {what}: a graph per entry, rel L2 "
+                  f"against the eager turns <= {rel:.3e}", flush=True)
+            out[f"{name} {what}"] = rel
+    return out
+
+
+def prepared_numbers():
+    """The bench's rows of ``PREPARED_REPS``, eager and through graphs, in
+    this run: s/call, the dispatch, the busy share, the capture, the nodes
+    and the peak memory, printed row by row."""
+    from raytrace_tpu_torch.tools import bench
+
+    out = {}
+    for eager in (True, False):
+        res = bench.run(device=DEV, reps=PREPARED_REPS, stream_rounds={},
+                        twins=(), out_dir=OUT_DIR, eager=eager)
+        if not res["gates_ok"]:
+            fail(f"bench rows eager {eager}: gates {res['gates']}")
+        out["eager" if eager else "graph"] = res
+    for name in PREPARED_REPS:
+        for how, res in out.items():
+            p = name + "_"
+            calls = res[p + "calls"]
+            med = sorted(c["dispatch_s"] for c in calls)[len(calls) // 2]
+            graph = (res[p + "graph"] or [{}])[0]
+            mem = res[f"mem_after_{name}"]
+            dev_ms = res[p + "device_s_per_call"] * 1e3
+            print(f"{name} {how}: s/call best "
+                  f"{res[p + 'best_seconds_per_call']:.5f} median "
+                  f"{res[p + 'median_seconds_per_call']:.5f}; dispatch "
+                  f"median {med:.5f} s; device {dev_ms:.3f} ms/call, busy "
+                  f"{res[p + 'busy']:.3f}; warmup call "
+                  f"{res[p + 'warmup_s']:.4f} s (capture "
+                  f"{graph.get('capture_s', 0.0):.4f} s); nodes "
+                  f"{graph.get('nodes')}; pool "
+                  f"{graph.get('pool_bytes', 0) / 2 ** 30:.3f} GiB; peak "
+                  f"{mem['max_memory_allocated'] / 2 ** 30:.3f} GiB, reserved "
+                  f"{mem['memory_reserved'] / 2 ** 30:.3f} GiB", flush=True)
+    return {how: {k: v for k, v in res.items()
+                  if k.startswith(tuple(PREPARED_REPS))
+                  or k.startswith("mem_after_")}
+            for how, res in out.items()}
+
+
+def phase_prepared():
+    """Phase 12, the prepared whole-call pipeline on the card."""
+    t0 = time.perf_counter()
+    rec = dict(replays=prepared_replays(), goldens=prepared_goldens(),
+               streams=prepared_streams(), failure=prepared_failure(),
+               meshes=prepared_meshes(), numbers=prepared_numbers())
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"prepared path: {rec['seconds']:.1f} s", flush=True)
+    record["prepared"] = rec
+
+
 #: phase 11's timed calls of each bench row, on one card and on the mesh
 MULTI_REPS = {"ase_small": 3, "seed_small": 3, "scale64": 2,
               "seed_scale4": 3}
@@ -1479,65 +1783,83 @@ def multicard_sharded(cards):
 
 def multicard_rows(cards):
     """The bench's rows on one card and on ``cards`` in one run
-    (``tools/bench.run`` with ``mesh``): every gate true, every card
-    launching B1 and B2 (and B3 on the seeded rows) in each mesh row; the
-    s/call beside the 1-card s/call, each card's peak memory, first and
-    last marks and the reduction's time."""
+    (``tools/bench.run`` with ``mesh``), once with the calls run from
+    Python (``eager``) and once through their graphs: every gate true,
+    every card launching B1 and B2 (and B3 on the seeded rows) in each mesh
+    row; the s/call beside the 1-card s/call, the dispatch, the busy
+    share, each entry's capture and nodes, each card's peak memory, first
+    and last marks and the reduction's time."""
     from raytrace_tpu_torch.tools import bench
 
     D = len(cards)
     t0 = time.perf_counter()
-    res = bench.run(device=cards[0], reps=MULTI_REPS, stream_rounds={},
-                    twins=(), out_dir=OUT_DIR, mesh=D)
-    if res["mesh_devices"] != [str(d) for d in cards]:
-        fail(f"bench mesh {res['mesh_devices']}, not {cards}")
-    rows = {}
-    for name in MULTI_REPS:
-        p = f"{name}_mesh{D}_"
-        need = ("trace", "bin_deposit") + (
-            ("amplify",) if name.startswith("seed") else ())
-        per_card = res[p + "launches_per_card"]
-        short = [(k, str(d)) for k in need for d in cards
-                 if per_card[k].get(str(d), 0) <= 0]
-        if short:
-            fail(f"{p[:-1]}: no launches of {short}: {per_card}")
-        calls = res[p + "calls"]
-        best = min(calls, key=lambda c: c["total_s"])
-        mem = res[f"mem_after_{name}_mesh{D}"]
-        rows[name] = dict(
-            rays=res[p + "n_rays"],
-            single_s=res[f"{name}_best_seconds_per_call"],
-            mesh_s=res[p + "best_seconds_per_call"],
-            speedup=res[p + "speedup"],
-            rel=res[p + "rel_vs_single"], launches_per_card=per_card,
-            peak_gib={d: m["max_memory_allocated"] / 2 ** 30
-                      for d, m in mem.items()},
-            single_peak_gib=res[f"mem_after_{name}"]["max_memory_allocated"]
-            / 2 ** 30,
-            reduce_ms=[c["reduce_s"] * 1e3 for c in calls],
-            best_call=best)
-        r = rows[name]
-        print(f"{name} ({r['rays']} rays): {D} cards {r['mesh_s']:.5f} s/call"
-              f" (timed {[round(c['total_s'], 5) for c in calls]}), 1 card "
-              f"{r['single_s']:.5f}, speedup {r['speedup']:.3f}; rel L2 "
-              f"against 1 card {r['rel']:.3e}; split of the best call: "
-              f"dispatch {best['dispatch_s']:.5f} s, wait "
-              f"{best['wait_s']:.5f} s, reduction {best['reduce_s'] * 1e3:.4f}"
-              f" ms on the device; peak GiB per card "
-              f"{ {d: round(v, 3) for d, v in r['peak_gib'].items()} } "
-              f"(1 card {r['single_peak_gib']:.3f}); launches per call per "
-              f"card {per_card}", flush=True)
-        for e in best["cards"]:
-            print(f"  {name} {e['device']}: first mark {e['first']:.3f} ms, "
-                  f"last {e['last']:.3f} ms after the card's start",
-                  flush=True)
-    gates = res["gates"]
-    print(f"multi-card bench gates {gates}; {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    if not res["gates_ok"] or not all(v is True for k, v in gates.items()
-                                      if "mesh" in k):
-        fail(f"multi-card rows: gates {gates}")
-    return dict(rows=rows, gates=gates, artifact=res)
+    out = {}
+    for eager in (True, False):
+        how = "eager" if eager else "graph"
+        res = bench.run(device=cards[0], reps=MULTI_REPS, stream_rounds={},
+                        twins=(), out_dir=OUT_DIR, mesh=D, eager=eager)
+        if res["mesh_devices"] != [str(d) for d in cards]:
+            fail(f"bench mesh {res['mesh_devices']}, not {cards}")
+        rows = {}
+        for name in MULTI_REPS:
+            p = f"{name}_mesh{D}_"
+            need = ("trace", "bin_deposit") + (
+                ("amplify",) if name.startswith("seed") else ())
+            per_card = res[p + "launches_per_card"]
+            short = [(k, str(d)) for k in need for d in cards
+                     if per_card[k].get(str(d), 0) <= 0]
+            if short:
+                fail(f"{p[:-1]} {how}: no launches of {short}: {per_card}")
+            calls = res[p + "calls"]
+            best = min(calls, key=lambda c: c["total_s"])
+            mem = res[f"mem_after_{name}_mesh{D}"]
+            graphs = [g and g[0] for g in res[p + "graphs"] or []]
+            rows[name] = dict(
+                rays=res[p + "n_rays"],
+                single_s=res[f"{name}_best_seconds_per_call"],
+                mesh_s=res[p + "best_seconds_per_call"],
+                mesh_median_s=res[p + "median_seconds_per_call"],
+                speedup=res[p + "speedup"],
+                rel=res[p + "rel_vs_single"], launches_per_card=per_card,
+                dispatch_median_s=sorted(
+                    c["dispatch_s"] for c in calls)[len(calls) // 2],
+                busy=res[p + "busy"], single_busy=res[f"{name}_busy"],
+                capture_s=[g and g["capture_s"] for g in graphs],
+                nodes=[g and g["nodes"]["kernel"] for g in graphs],
+                peak_gib={d: m["max_memory_allocated"] / 2 ** 30
+                          for d, m in mem.items()},
+                single_peak_gib=res[f"mem_after_{name}"][
+                    "max_memory_allocated"] / 2 ** 30,
+                reduce_ms=[c["reduce_s"] * 1e3 for c in calls],
+                best_call=best)
+            r = rows[name]
+            print(f"{name} ({r['rays']} rays) {how}: {D} cards "
+                  f"{r['mesh_s']:.5f} s/call (timed "
+                  f"{[round(c['total_s'], 5) for c in calls]}), 1 card "
+                  f"{r['single_s']:.5f}, speedup {r['speedup']:.3f}; rel L2 "
+                  f"against 1 card {r['rel']:.3e}; dispatch median "
+                  f"{r['dispatch_median_s']:.5f} s; busy per card "
+                  f"{r['busy']:.3f} (1 card {r['single_busy']:.3f}); "
+                  f"capture per entry {r['capture_s']} s, kernel nodes "
+                  f"{r['nodes']}; split of the best call: dispatch "
+                  f"{best['dispatch_s']:.5f} s, wait {best['wait_s']:.5f} s, "
+                  f"reduction {best['reduce_s'] * 1e3:.4f} ms on the device; "
+                  f"peak GiB per card "
+                  f"{ {d: round(v, 3) for d, v in r['peak_gib'].items()} } "
+                  f"(1 card {r['single_peak_gib']:.3f}); launches per call "
+                  f"per card {per_card}", flush=True)
+            for e in best["cards"]:
+                print(f"  {name} {how} {e['device']}: first mark "
+                      f"{e['first']:.3f} ms, last {e['last']:.3f} ms after "
+                      f"the card's start", flush=True)
+        gates = res["gates"]
+        print(f"multi-card bench gates ({how}) {gates}", flush=True)
+        if not res["gates_ok"] or not all(v is True for k, v in gates.items()
+                                          if "mesh" in k):
+            fail(f"multi-card rows ({how}): gates {gates}")
+        out[how] = dict(rows=rows, gates=gates, artifact=res)
+    print(f"multi-card rows: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def multicard_profile(cards):
@@ -1785,6 +2107,8 @@ def main(argv) -> int:
                                           path_kernels)
     _, record["medium_launches"] = run_path("medium-scale path",
                                             phase_medium, path_kernels)
+    _, record["prepared_launches"] = run_path("prepared path",
+                                              phase_prepared, path_kernels)
     if torch.cuda.device_count() >= 2:
         _, record["multicard_launches"] = run_path(
             "multi-card path", phase_multicard, path_kernels)

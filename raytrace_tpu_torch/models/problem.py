@@ -35,8 +35,9 @@ from raytrace_tpu_torch.ops import interp
 from raytrace_tpu_torch.structures import RayGain, RaySeed
 
 __all__ = ["DeviceGain", "DeviceSeed", "DeviceBeam", "gain_arrays",
-           "gain_to_device", "prepare_gain", "seed_arrays", "seed_from_tensors",
-           "beam_arrays", "beam_from_tensors", "prepare_beam",
+           "gain_to_device", "prepare_gain", "seed_arrays", "seed_scalars",
+           "seed_from_tensors", "beam_arrays", "beam_scalars",
+           "beam_from_tensors", "prepare_beam",
            "pack_arrays", "unpack_arrays"]
 
 
@@ -187,16 +188,22 @@ def seed_arrays(seed: RaySeed) -> dict:
     return out
 
 
-def seed_from_tensors(t: dict, seed: RaySeed) -> DeviceSeed:
-    """DeviceSeed from the tensors of :func:`seed_arrays`."""
+def seed_scalars(seed: RaySeed) -> tuple:
+    """The DeviceSeed fields that are host scalars: ``(f0, lo, hi)``."""
+    return (float(seed.f0), tuple(float(seed.x[i][0]) for i in range(4)),
+            tuple(float(seed.x[i][-1]) for i in range(4)))
+
+
+def seed_from_tensors(t: dict, scalars: tuple) -> DeviceSeed:
+    """DeviceSeed from the tensors of :func:`seed_arrays` and the
+    :func:`seed_scalars` of its seed."""
+    f0, lo, hi = scalars
     return DeviceSeed(
         xs=tuple(t[f"x{a}"] for a in range(4)),
         fs=tuple(t[f"f{a}"] for a in range(4)),
         g1s=tuple(t[f"g1_{a}"] for a in range(4)),
         g2s=tuple(t[f"g2_{a}"] for a in range(4)),
-        fv=t["fv"], f0=float(seed.f0),
-        lo=tuple(float(seed.x[i][0]) for i in range(4)),
-        hi=tuple(float(seed.x[i][-1]) for i in range(4)))
+        fv=t["fv"], f0=f0, lo=lo, hi=hi)
 
 
 def beam_arrays(beam) -> dict:
@@ -205,18 +212,26 @@ def beam_arrays(beam) -> dict:
             for k in ("x", "y", "a", "b", "dv")}
 
 
-def beam_from_tensors(t: dict, beam) -> DeviceBeam:
-    """DeviceBeam from the tensors of :func:`beam_arrays`."""
-    return DeviceBeam(
-        x=t["x"], y=t["y"], a=t["a"], b=t["b"], dv=t["dv"],
-        dx=float(beam.dx), dy=float(beam.dy), da=float(beam.da),
-        db=float(beam.db), y0_nonneg=bool(beam.y[0] >= 0.0))
+def beam_scalars(beam) -> tuple:
+    """The DeviceBeam fields that are host scalars: ``(dx, dy, da, db,
+    y0_nonneg)``."""
+    return (float(beam.dx), float(beam.dy), float(beam.da), float(beam.db),
+            bool(beam.y[0] >= 0.0))
+
+
+def beam_from_tensors(t: dict, scalars: tuple) -> DeviceBeam:
+    """DeviceBeam from the tensors of :func:`beam_arrays` and the
+    :func:`beam_scalars` of its beam."""
+    dx, dy, da, db, y0_nonneg = scalars
+    return DeviceBeam(x=t["x"], y=t["y"], a=t["a"], b=t["b"], dv=t["dv"],
+                      dx=dx, dy=dy, da=da, db=db, y0_nonneg=y0_nonneg)
 
 
 def prepare_beam(beam, device="cpu") -> DeviceBeam:
     """The EUV beam's grids on ``device``."""
     return beam_from_tensors({k: torch.as_tensor(v, device=device)
-                              for k, v in beam_arrays(beam).items()}, beam)
+                              for k, v in beam_arrays(beam).items()},
+                             beam_scalars(beam))
 
 
 #: byte alignment of each array in a packed buffer (>= every itemsize, so

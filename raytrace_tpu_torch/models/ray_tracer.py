@@ -15,15 +15,24 @@ PyTorch, following ``raytrace_tpu.models.ray_tracer``:
   bit is set) the codes, failed-ray dump and abort (RayTraceImage.cpp:
   427-430).
 
-A call is a dispatch (:func:`_dispatch`: upload, every chunk's kernels, the
-start of the readback; the host never waits) and a finalize
-(:func:`_finalize`: wait for the one readback of image, I_ang and failure
-bits). ``create_image`` runs the two back to back; ``create_image_stream``
-keeps up to ``depth`` calls dispatched. A dispatch is a sequence of steps,
-one a chunk (:func:`_dispatch_steps`), so that a mesh of cards can advance
-its entries' dispatches in turns. On a CUDA device the dispatch runs with
-that device current (``cuda_lib.device_guard``), whichever device the
-caller had made current.
+A call is split, as in ``raytrace_tpu``, into a prepare and an execute:
+:func:`prepare_pipeline` validates the problem, packs its tables on the
+host and resolves the static configuration (``cfg``), and fetches the
+cached whole-call pipeline of that configuration; ``pipeline(*operands)``
+enqueues the whole call (the upload of the packed tables, every chunk's
+kernels, the failure flags, the readback) without waiting for the device;
+:func:`_finalize_call` waits for the readback and runs the failure path and
+the layout. ``create_image`` is the three in a row; ``create_image_stream``
+keeps up to ``depth`` calls dispatched.
+
+On a CUDA device with the kernels (method ``cuda``) the pipeline is a CUDA
+graph of the whole call (:class:`_GraphPipeline`): captured once per
+configuration and then replayed, one host call per call, with each call's
+tables copied into the graph's page-locked staging buffer first. Elsewhere
+(the plain twins, on the CPU or on a card) it runs the chunk loop from
+Python (:class:`_EagerPipeline`, which is also what a graph captures). On
+a CUDA device the call runs with that device current
+(``cuda_lib.device_guard``), whichever device the caller had made current.
 
 Methods: ``cuda`` runs the hand-written kernels (trace B1, deposit B2,
 amplify B3) on a CUDA device; ``cpu`` runs their plain PyTorch twins (on the
@@ -38,15 +47,16 @@ change every iteration (Readme.txt:43).
 
 from __future__ import annotations
 
-from collections import deque
+import time
+from collections import OrderedDict, deque
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from raytrace_tpu_torch.models.problem import (
-    DeviceGain, beam_arrays, beam_from_tensors, gain_arrays, pack_arrays,
-    seed_arrays, seed_from_tensors, unpack_arrays)
+    DeviceGain, beam_arrays, beam_from_tensors, beam_scalars, gain_arrays,
+    pack_arrays, seed_arrays, seed_from_tensors, seed_scalars, unpack_arrays)
 from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
                                     deposit_kernel, seed as seed_ops,
                                     spectrum, stepper, trace_kernel)
@@ -54,9 +64,11 @@ from raytrace_tpu_torch.structures import CreateImageProblem
 from raytrace_tpu_torch.utils import errors as err_util
 from raytrace_tpu_torch.utils.timer import profiler
 
-__all__ = ["create_image", "create_image_stream", "resolve_method",
-           "make_stride_mapper", "generate_ray_indices", "available_methods",
-           "reorder_perm", "reorder_row_geom", "N_MAX", "K_MAX", "METHODS"]
+__all__ = ["create_image", "create_image_stream", "prepare_pipeline",
+           "PreparedCall", "resolve_method", "make_stride_mapper",
+           "generate_ray_indices", "available_methods", "reorder_perm",
+           "reorder_row_geom", "clear_pipeline_cache", "N_MAX", "K_MAX",
+           "METHODS", "GRAPH_POOL_SHARE"]
 
 N_MAX = 20   # max length segments (RayTraceImageHelper.h:29)
 K_MAX = 100  # max frequencies (RayTraceImageHelper.h:30)
@@ -88,7 +100,7 @@ def _check_grid(d: float, grid) -> bool:
 def generate_ray_indices(problem: CreateImageProblem) -> np.ndarray:
     """Global flat ray indices under the stride contract: worker takes
     ``ijkm = N_start + it * N_parallel`` (RayTraceImage.cpp:300-328)."""
-    beam = problem.seed_beam if problem.seed is not None else problem.euv_beam
+    beam = _source_beam(problem)
     Nt = beam.nx * beam.ny * beam.na * beam.nb
     its = np.arange(Nt // problem.N_parallel + 1, dtype=np.int64)
     ijkm = problem.N_start + its * problem.N_parallel
@@ -180,6 +192,94 @@ def _validate(problem: CreateImageProblem):
     return 1, beam, 1.0, "propagate_ASE"
 
 
+class PreparedCall(NamedTuple):
+    """The prepare/execute split of a ``create_image`` call
+    (``raytrace_tpu``'s ``PreparedCall``).
+
+    ``pipeline(*operands)`` enqueues the whole call -- the upload of the
+    packed tables, every chunk's kernels, the failure flags and the
+    readback -- and returns its :class:`_Call` without waiting for the
+    device; :func:`_finalize_call` waits for it. With ``cfg["reorder"]``
+    the pipeline takes one more operand, the previous call's per-ray
+    counts in natural order (all zero: the natural order), and the call
+    returns its own (``_Call.counts``).
+    """
+
+    pipeline: object
+    #: (packed tables: one host uint8 buffer, page-locked for a CUDA device)
+    operands: tuple
+    #: the static configuration the pipeline was built for: ``N``, ``K``,
+    #: ``method``, ``use_emis``, ``dims``, ``chunk``, ``n_chunks``,
+    #: ``N_start``, ``N_parallel``, ``reorder`` (as built: on where asked
+    #: and the call has rays), ``graph`` (a CUDA graph, or the chunk loop
+    #: from Python), ``launches`` (each kernel's launches in one call),
+    #: the table layout and the host scalars the call bakes in
+    cfg: dict
+    timer_name: str
+
+
+def prepare_pipeline(problem: CreateImageProblem, compute_method: str = "auto",
+                     device=None, chunk_size: int | None = None,
+                     c: float = 0.5, reorder: bool = False, *,
+                     eager: bool = False) -> PreparedCall:
+    """Validate the problem, pack its tables on the host, resolve the static
+    config and fetch the cached whole-call pipeline of that config.
+
+    The host-to-device copy of the tables happens when the returned
+    pipeline is called with the returned operands, inside the timed region
+    (the reference re-uploads per call, Readme.txt:43). On a CUDA device
+    with method ``cuda`` the pipeline replays a CUDA graph of the call,
+    captured on the first call of its config (after one eager warm-up
+    call); ``eager`` asks for the chunk loop from Python there instead (the
+    reference the graphs are held against). Elsewhere the pipeline is the
+    chunk loop. ``reorder`` asks for the cost-feedback reorder
+    (``cfg["reorder"]`` says whether it was built: a call with no rays has
+    nothing to sort).
+    """
+    name, dev = resolve_method(compute_method, device)
+    return _prepare(problem, name, dev, chunk_size, c, reorder, eager=eager)
+
+
+def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
+             readback=True, eager=False, packed=None) -> PreparedCall:
+    """:func:`prepare_pipeline` for a resolved method and device; without
+    ``readback`` the call's output stays on the device (a mesh entry's
+    partial); ``packed``: the tables of :func:`_pack`, when packed apart."""
+    method, src, scale, timer_name = _validate(problem)
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        # a graph is bound to the card it was captured on
+        dev = torch.device("cuda", torch.cuda.current_device())
+    beam = problem.euv_beam
+    dims = (src.nx, src.ny, src.na, src.nb)
+    Nt = dims[0] * dims[1] * dims[2] * dims[3]
+    skip = problem.N_parallel
+    B_total = (len(range(problem.N_start, Nt, skip))
+               if problem.N_start < Nt else 0)
+    chunk = max(1, min(chunk_size or DEFAULT_CHUNK[name], max(B_total, 1)))
+    n_chunks = -(-B_total // chunk)
+    use_emis = problem.gain[0].E0 is not None and problem.seed is None
+    reorder = bool(reorder) and B_total > 0
+    buf, layout = packed or _pack(problem, src, dev)
+    kernels = n_chunks if name == "cuda" else 0
+    n_image = beam.nx * beam.ny * beam.nv
+    cfg = dict(
+        name=name, device=dev, N=problem.N, dz=float(beam.dz), K=beam.nv,
+        method=method, use_emis=use_emis, dims=dims, scale=float(scale),
+        c=float(c), chunk=chunk, n_chunks=n_chunks, B_total=B_total,
+        N_start=problem.N_start, N_parallel=skip, reorder=reorder,
+        reorder_row=reorder_row_geom(problem) if reorder else None,
+        pack_layout=tuple(layout), beam_scalars=beam_scalars(beam),
+        seed_scalars=(None if problem.seed is None
+                      else seed_scalars(problem.seed)),
+        n_image=n_image, n_out=n_image + beam.na * beam.nb + N_FLAGS,
+        readback=readback, graph=name == "cuda" and not eager,
+        launches=dict(trace=kernels, bin_deposit=kernels,
+                      amplify=0 if use_emis else kernels))
+    return PreparedCall(pipeline=_pipeline(cfg), operands=(buf,), cfg=cfg,
+                        timer_name=timer_name + "-" + name)
+
+
 def create_image(problem: CreateImageProblem, compute_method: str = "auto",
                  device=None, chunk_size: int | None = None, c: float = 0.5,
                  failed_ray_path: str = "Failed_RayTrace_rays.dat",
@@ -191,22 +291,48 @@ def create_image(problem: CreateImageProblem, compute_method: str = "auto",
     are also stored on ``problem.image`` / ``problem.I_ang``. Raises
     :class:`~raytrace_tpu_torch.utils.errors.RayTraceError` on invalid
     input or when any ray fails, after writing the failed-ray dump to
-    ``failed_ray_path``.
+    ``failed_ray_path``. The call is :func:`prepare_pipeline`, the
+    pipeline, then :func:`_finalize_call`.
     """
     profiler.start("create_image")
     dev = None
     try:
-        name, dev = resolve_method(compute_method, device)
-        timer_name = _validate(problem)[3] + "-" + name
-        profiler.start(timer_name)
+        prep = prepare_pipeline(problem, compute_method, device, chunk_size,
+                                c)
+        dev = prep.cfg["device"]
+        profiler.start(prep.timer_name)
         try:
-            with cuda_lib.device_guard(dev):
-                call = _dispatch(problem, name, dev, chunk_size, c)
-            return _finalize(call, failed_ray_path)
+            outs = prep.pipeline(*prep.operands)
+            return _finalize_call(problem, prep, outs, failed_ray_path)
         finally:
-            profiler.stop(timer_name, dev)
+            profiler.stop(prep.timer_name, dev)
     finally:
         profiler.stop("create_image", dev)
+
+
+def _finalize_call(problem: CreateImageProblem, prep: PreparedCall,
+                   outs, failed_ray_path: str
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Blocking tail of a dispatched call: wait for its readback; the
+    failure path (RayTraceImage.cpp:427-430), reading the per-ray codes
+    only when a ray failed; the reference layout; store on the problem.
+    A graph's outputs are read before the graph may run again."""
+    try:
+        if outs.done is not None:
+            outs.done.synchronize()
+        host = outs.out.numpy()
+        bits = fail_bits(host[-N_FLAGS:])
+        if bits:
+            raise_failure(problem, _source_beam(problem), prep.cfg["method"],
+                          failed_rays(problem, outs.codes), bits,
+                          failed_ray_path)
+        image_np = host[:outs.n_image].copy()
+        i_ang_np = host[outs.n_image:-N_FLAGS].copy()
+    finally:
+        _release(outs)
+    problem.image = image_np
+    problem.I_ang = i_ang_np
+    return image_np, i_ang_np
 
 
 def create_image_stream(problems, compute_method: str = "auto", device=None,
@@ -219,21 +345,22 @@ def create_image_stream(problems, compute_method: str = "auto", device=None,
 
     Yields ``(image, I_ang)`` per problem, in order, as :func:`create_image`
     returns them: the same per-call table upload, failure path and layouts.
-    Up to ``depth`` calls are dispatched and not yet read back; the oldest
-    is read back before the next is dispatched. On a CUDA device a call's
-    tables go up on an upload stream from a page-locked buffer and its
-    result comes back on a readback stream, so call k+1's host packing and
-    upload overlap call k's kernels, and call k's readback overlaps call
-    k+1's kernels. A failing call raises at its own yield position.
+    Each unit is prepared with :func:`prepare_pipeline`, and up to
+    ``depth`` calls are dispatched and not yet read back; the oldest is
+    read back before the next is dispatched, so call k+1's host packing and
+    dispatch overlap call k's device work. On a CUDA device each call in
+    flight replays a graph of its own (the key's graphs, one per call in
+    flight), all on the current stream. A failing call raises at its own
+    yield position.
 
     ``reorder`` turns on the cost-feedback reorder: each chunk's rays run in
     the order of ``(entry fetch row, previous call's micro-step count)``
     (:func:`reorder_perm`), with the counts taken by the trace's counts
     variant and kept on the device in natural ray order for the next call
-    of the same shape. The first call, and the first after a shape change,
-    runs in natural order. Per-ray results do not depend on the order; only
-    the f64 deposits are summed in another order, so images agree with the
-    synchronous call to rounding (about 1e-15 relative).
+    of the same rays and chunks. The first call, and the first after a
+    change, runs in natural order. Per-ray results do not depend on the
+    order; only the f64 deposits are summed in another order, so images
+    agree with the synchronous call to rounding (about 1e-15 relative).
 
     With ``mesh`` (a tuple of devices, :func:`~raytrace_tpu_torch.parallel.
     mesh.make_mesh`), every unit runs as a sharded call
@@ -246,14 +373,20 @@ def create_image_stream(problems, compute_method: str = "auto", device=None,
         raise err_util.RayTraceError("create_image_stream needs depth >= 1")
     if mesh is None:
         name, dev = resolve_method(compute_method, device)
-        streams = _Streams(dev) if dev.type == "cuda" else None
-        feedback = _Feedback() if reorder else None
+        feedback = _Feedback()
 
         def dispatch(problem):
-            with cuda_lib.device_guard(dev):
-                return _dispatch(problem, name, dev, chunk_size, c, streams,
-                                 feedback)
-        finalize = _finalize
+            prep = prepare_pipeline(problem, name, dev, chunk_size, c,
+                                    reorder)
+            outs = prep.pipeline(*feedback.operands(prep.cfg, prep.operands))
+            feedback.update(prep.cfg, outs)
+            return problem, prep, outs
+
+        def finalize(item):
+            return _finalize_call(*item, failed_ray_path)
+
+        def discard(item):
+            _discard(item[2])
     else:
         if device is not None:
             raise err_util.RayTraceError(
@@ -261,19 +394,27 @@ def create_image_stream(problems, compute_method: str = "auto", device=None,
         from raytrace_tpu_torch.parallel import sharding
 
         runner = sharding.MeshRunner(mesh, compute_method, chunk_size, c,
-                                     streaming=True, reorder=reorder)
+                                     reorder=reorder)
         dev = runner.mesh[0]
-        dispatch, finalize = runner.dispatch, sharding._finalize_sharded
+        dispatch = runner.dispatch
+
+        def finalize(call):
+            return sharding._finalize_sharded(call, failed_ray_path)
+        discard = sharding._discard_sharded
     in_flight = deque()
     profiler.start("create_image_stream")
     try:
         for problem in problems:
             if len(in_flight) >= depth:
-                yield finalize(in_flight.popleft(), failed_ray_path)
+                yield finalize(in_flight.popleft())
             in_flight.append(dispatch(problem))
         while in_flight:
-            yield finalize(in_flight.popleft(), failed_ray_path)
+            yield finalize(in_flight.popleft())
     finally:
+        # a stream ended early (a failing call, a consumer that stopped)
+        # leaves no graph in flight
+        while in_flight:
+            discard(in_flight.popleft())
         profiler.stop("create_image_stream", dev)
 
 
@@ -351,39 +492,56 @@ def reorder_perm(row, dims, costs: torch.Tensor, ijkm_nat: torch.Tensor,
     return torch.argsort(key, stable=True)
 
 
-class _Streams:
-    """Side streams of a CUDA stream executor: uploads and readbacks each
-    on their own stream, so they overlap the compute stream's kernels."""
-
-    def __init__(self, dev):
-        self.upload = torch.cuda.Stream(dev)
-        self.readback = torch.cuda.Stream(dev)
-
-
 class _Feedback:
-    """The reorder's sort key between calls of a stream: the last
-    dispatched call's per-ray counts in natural order (on the device), and
-    the shape they belong to."""
+    """The reorder's sort key between calls of a stream (or of a mesh
+    entry): the last dispatched call's per-ray counts in natural order (on
+    the device), and the rays and chunks they belong to."""
 
     def __init__(self):
         self.key = None
         self.counts = None
 
+    def operands(self, cfg: dict, operands: tuple) -> tuple:
+        """A call's ``operands``, with the sort key appended where its
+        ``cfg`` runs the reorder: the last call's counts when it had the
+        same rays in the same chunks, else zeros (the natural order)."""
+        if not cfg["reorder"]:
+            return operands
+        key = (cfg["B_total"], cfg["chunk"], cfg["dims"], cfg["N_start"],
+               cfg["N_parallel"], cfg["device"])
+        if self.key != key:
+            self.key = key
+            self.counts = torch.zeros(cfg["B_total"], dtype=torch.int32,
+                                      device=cfg["device"])
+        return operands + (self.counts,)
+
+    def update(self, cfg: dict, call) -> None:
+        """Keep ``call``'s counts as the next call's sort key."""
+        if cfg["reorder"]:
+            self.counts = call.counts
+
 
 class _Call(NamedTuple):
-    """A dispatched call: its device work is enqueued; :func:`_finalize`
-    reads it back."""
+    """A dispatched call's outputs: its device work is enqueued;
+    :func:`_finalize_call` reads it back."""
 
-    problem: CreateImageProblem
-    method: int
-    src: object
     #: [image | I_ang | per-code failure flags] f64: on the host once the
     #: readback is started (its CUDA event ``done``; None on the CPU), on
-    #: the device for a dispatch without the readback
+    #: the device for a call without the readback
     out: torch.Tensor
     done: object
     codes: torch.Tensor     # [B_total] i8 per-ray codes, natural order
+    counts: object          # [B_total] i32 micro-step counts (reorder)
     n_image: int
+    #: the graph whose static buffers these are, until the call is
+    #: finalized (None for a call run from Python)
+    graph: object = None
+
+
+def _source_beam(problem):
+    """The beam whose grids give the rays: the seed beam of a seeded
+    problem, the EUV beam otherwise."""
+    return problem.seed_beam if problem.seed is not None else problem.euv_beam
 
 
 def _pack(problem, src, dev):
@@ -401,54 +559,17 @@ def _pack(problem, src, dev):
     return pack_arrays(arrays, pin=dev.type == "cuda")
 
 
-def _upload(packed, dev, streams):
-    """The call's tables on ``dev`` as a dict of tensors: :func:`_pack`'s
-    buffer copied in one transfer (asynchronously, from page-locked memory,
-    on the upload stream when ``streams`` is given)."""
-    buf, layout = packed
-    if dev.type != "cuda":
-        dbuf = buf.to(dev)
-    elif streams is None:
-        dbuf = buf.to(dev, non_blocking=True)
-    else:
-        with torch.cuda.stream(streams.upload):
-            dbuf = buf.to(dev, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(streams.upload)
-        compute = torch.cuda.current_stream(dev)
-        compute.wait_event(ready)
-        dbuf.record_stream(compute)
-    t = unpack_arrays(dbuf, layout)
-
-    def part(prefix):
-        return {k[len(prefix):]: v for k, v in t.items()
-                if k.startswith(prefix)}
-
-    return t, part
-
-
-def _readback(out: torch.Tensor, dev, streams):
-    """Start the copy of ``out`` to the host; returns ``(host, event)``
-    (``out`` itself and None on the CPU). The copy follows the current
-    stream of ``dev``, and the event is recorded on ``dev``, whichever
-    device is current: it completes only after the copy."""
+def _readback(out: torch.Tensor, dev):
+    """Start the copy of ``out`` to page-locked host memory on the current
+    stream of ``dev``; returns ``(host, event)`` (``out`` itself and None
+    on the CPU). The event is recorded on ``dev``, whichever device is
+    current: it completes only after the copy."""
     if dev.type != "cuda":
         return out, None
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    compute = torch.cuda.current_stream(dev)
-    if streams is None:
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(compute)
-        return host, done
-    ready = torch.cuda.Event()
-    ready.record(compute)
-    streams.readback.wait_event(ready)
-    with torch.cuda.stream(streams.readback):
-        host.copy_(out, non_blocking=True)
-        out.record_stream(streams.readback)
-        done = torch.cuda.Event()
-        done.record(streams.readback)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
     return host, done
 
 
@@ -462,58 +583,43 @@ class _Tables(NamedTuple):
     fv: torch.Tensor        # [K] f64 frequency profile (ones without)
 
 
-def _tables(problem, src, dev, streams=None, packed=None) -> _Tables:
-    """Upload the problem's tables to ``dev`` (one transfer; ``packed``:
-    :func:`_pack`'s result, when the host packing was done apart) and form
-    the entry seed's factor tables there. They depend on the problem alone,
-    not on its stride, so the shards of a sharded call on one device share
-    them."""
-    K = problem.euv_beam.nv
-    t, part = _upload(packed or _pack(problem, src, dev), dev, streams)
+def _tables(cfg: dict, buf: torch.Tensor) -> _Tables:
+    """Copy the packed tables ``buf`` to the call's device in one transfer
+    (asynchronous from page-locked memory) on its current stream, and form
+    the entry seed's factor tables there."""
+    dev, K = cfg["device"], cfg["K"]
+    dbuf = buf.to(dev, non_blocking=True)
+    t = unpack_arrays(dbuf, cfg["pack_layout"])
+
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in t.items()
+                if k.startswith(prefix)}
+
     grids = [t[f"grid.{axis}"] for axis in "xyab"]
     entry_seed = None
     fv = torch.ones(K, dtype=torch.float64, device=dev)
-    if problem.seed is not None:
+    if cfg["seed_scalars"] is not None:
         entry_seed = seed_ops.make_entry_seed_tables(
-            seed_from_tensors(part("seed."), problem.seed), grids, K)
+            seed_from_tensors(part("seed."), cfg["seed_scalars"]), grids, K)
         fv = entry_seed.fv
     return _Tables(gain=DeviceGain(**part("gain.")),
-                   beam=beam_from_tensors(part("beam."), problem.euv_beam),
+                   beam=beam_from_tensors(part("beam."), cfg["beam_scalars"]),
                    grids=grids, entry_seed=entry_seed, fv=fv)
 
 
-def _dispatch(problem, name, dev, chunk_size, c, streams=None,
-              feedback=None, readback=True, tables=None) -> _Call:
-    """Validate, upload the tables (unless ``tables`` holds them already),
-    enqueue every chunk and (with ``readback``) the readback: every step of
-    :func:`_dispatch_steps` at once. Nothing here waits for the device."""
-    steps = _dispatch_steps(problem, name, dev, chunk_size, c, streams,
-                            feedback, readback, tables)
-    while True:
-        try:
-            next(steps)
-        except StopIteration as stop:
-            return stop.value
-
-
-def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
-                    feedback=None, readback=True, tables=None):
-    """:func:`_dispatch` as a generator that yields after each chunk's
-    launches and returns the :class:`_Call` (``StopIteration.value``). The
-    first step validates, uploads and enqueues the first chunk; the last
-    enqueues the failure flags and the readback. ``feedback`` (a stream's
-    reorder state) turns on the cost-feedback reorder and is updated in
-    place. Each step's work goes to the current stream of ``dev`` (the side
-    streams of ``streams`` aside), so a caller that interleaves the steps
-    of several dispatches makes each one's device and stream current around
-    each step."""
-    method, src, scale, _ = _validate(problem)
-    beam = problem.euv_beam
-    K = beam.nv
-    N = problem.N
-    use_emis = problem.gain[0].E0 is not None and problem.seed is None
-    dims = (src.nx, src.ny, src.na, src.nb)
-    if name == "cuda":
+def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
+    """One call of ``cfg`` run from Python, as a generator that yields
+    after each chunk's launches and returns the :class:`_Call` with its
+    output on the device (``StopIteration.value``). The first step uploads
+    the packed tables ``buf`` and enqueues the first chunk; the last the
+    failure flags. ``prev`` (where ``cfg["reorder"]``): the previous call's
+    counts, the reorder's sort key. Every step's work goes to the current
+    stream of the device, so a caller that interleaves the steps of several
+    calls makes each one's device and stream current around each step.
+    Nothing here waits for the device: a CUDA graph captures it."""
+    dev, method, N, K = cfg["device"], cfg["method"], cfg["N"], cfg["K"]
+    dims, use_emis = cfg["dims"], cfg["use_emis"]
+    if cfg["name"] == "cuda":
         trace, gain_only, deposit = (trace_kernel.trace_batch,
                                      amplify_kernel.amplify_gain,
                                      deposit_kernel.bin_deposit)
@@ -523,38 +629,27 @@ def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
                                      deposit_kernel.bin_deposit_plain)
 
     # one upload of the problem tables per call
-    if tables is None:
-        tables = _tables(problem, src, dev, streams)
+    tables = _tables(cfg, buf)
     gain, dbeam, grids = tables.gain, tables.beam, tables.grids
     entry_seed, fv = tables.entry_seed, tables.fv
     gv = gain.gv[1:]
     f64 = dict(dtype=torch.float64, device=dev)
 
-    Nt = dims[0] * dims[1] * dims[2] * dims[3]
-    skip = problem.N_parallel
-    B_total = (len(range(problem.N_start, Nt, skip))
-               if problem.N_start < Nt else 0)
-    chunk = max(1, min(chunk_size or DEFAULT_CHUNK[name], max(B_total, 1)))
-    map_it = make_stride_mapper(dims, problem.N_start, skip)
-
-    prev = counts = None
-    if feedback is not None:
-        key = (B_total, chunk, dims, problem.N_start, skip)
-        prev = (feedback.counts if feedback.key == key else
-                torch.zeros(B_total, dtype=torch.int32, device=dev))
+    B_total, chunk = cfg["B_total"], cfg["chunk"]
+    map_it = make_stride_mapper(dims, cfg["N_start"], cfg["N_parallel"])
+    counts = None
+    if cfg["reorder"]:
         counts = torch.zeros(B_total, dtype=torch.int32, device=dev)
-        row = reorder_row_geom(problem)
+        row = cfg["reorder_row"]
 
-    image = torch.zeros((beam.nx * beam.ny, K), dtype=torch.float64,
-                        device=dev)
-    i_ang = torch.zeros((beam.na * beam.nb, 1), dtype=torch.float64,
-                        device=dev)
+    image = torch.zeros((dbeam.x.shape[0] * dbeam.y.shape[0], K), **f64)
+    i_ang = torch.zeros((dbeam.a.shape[0] * dbeam.b.shape[0], 1), **f64)
     codes = torch.zeros(B_total, dtype=torch.int8, device=dev)
     for start in range(0, B_total, chunk):
         n = min(chunk, B_total - start)
         it = torch.arange(start, start + n, dtype=torch.int64, device=dev)
         perm = None
-        if prev is not None:
+        if counts is not None:
             perm = reorder_perm(row, dims, prev[start:start + n],
                                 map_it(it)[0], grids[1])
             it = start + perm
@@ -563,10 +658,10 @@ def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
         rays = {"x": grids[0][i], "y": grids[1][j], "a": grids[2][k],
                 "b": grids[3][m]}
         if perm is None:
-            res = trace(rays, N, beam.dz, gain, method, c, use_emis)
+            res = trace(rays, N, cfg["dz"], gain, method, cfg["c"], use_emis)
         else:
-            res, cnt = trace(rays, N, beam.dz, gain, method, c, use_emis,
-                             counts=True)
+            res, cnt = trace(rays, N, cfg["dz"], gain, method, cfg["c"],
+                             use_emis, counts=True)
             # back to natural order: the next call's sort key
             counts.narrow(0, start, n).index_copy_(0, perm, cnt)
         if use_emis:
@@ -582,7 +677,7 @@ def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
             (flags & amplify_kernel.FLAG_NEG) != 0, -2,
             torch.where((flags & amplify_kernel.FLAG_NAN) != 0, -3, 0)))
         code = torch.where(valid, code, 0).to(torch.int8)
-        binning.bin_images(Iv, res, rays, dbeam, method, scale,
+        binning.bin_images(Iv, res, rays, dbeam, method, cfg["scale"],
                            valid & (code == 0), image, i_ang, deposit)
         if perm is None:
             codes[start:start + n] = code
@@ -590,8 +685,6 @@ def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
             # natural order, so the failure path names the physical ray
             codes.narrow(0, start, n).index_copy_(0, perm, code)
         yield
-    if feedback is not None:
-        feedback.key, feedback.counts = key, counts
 
     # a flag per failure code (-1, -2, -3), on the device; flags add up
     # across the shards and ranks of a sharded call, and one readback
@@ -599,11 +692,263 @@ def _dispatch_steps(problem, name, dev, chunk_size, c, streams=None,
     flags = torch.stack([torch.any(codes == -err) for err in (1, 2, 3)])
     out = torch.cat([image.reshape(-1), i_ang.reshape(-1),
                      flags.to(torch.float64)])
-    done = None
-    if readback:
-        out, done = _readback(out, dev, streams)
-    return _Call(problem=problem, method=method, src=src, out=out,
-                 done=done, codes=codes, n_image=image.numel())
+    return _Call(out=out, done=None, codes=codes, counts=counts,
+                 n_image=image.numel())
+
+
+def _drain(steps):
+    """Run a generator of steps to its end; its return value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _dispatch(problem, name, dev, chunk_size=None, c=0.5, readback=True,
+              prev=None) -> _Call:
+    """One call of ``problem`` run from Python, also on a CUDA device (the
+    reference the graphs are held against); with ``prev``, the reorder
+    sorted by it. Nothing here waits for the device."""
+    prep = _prepare(problem, name, dev, chunk_size, c,
+                    reorder=prev is not None, readback=readback, eager=True)
+    return prep.pipeline(*prep.operands,
+                         *(() if prev is None else (prev,)))
+
+
+class _EagerPipeline:
+    """The pipeline of a config run from Python: the plain twins (on the
+    CPU or on a card), and the kernels when asked (``eager``)."""
+
+    def __init__(self, cfg: dict):
+        self.cfg = cfg
+
+    def steps(self, buf, prev=None):
+        """The call as steps, one a chunk (:func:`_dispatch_steps`), then
+        the start of the readback."""
+        call = yield from _dispatch_steps(self.cfg, buf, prev)
+        if self.cfg["readback"]:
+            out, done = _readback(call.out, self.cfg["device"])
+            call = call._replace(out=out, done=done)
+        return call
+
+    def __call__(self, buf, prev=None) -> _Call:
+        with cuda_lib.device_guard(self.cfg["device"]):
+            return _drain(self.steps(buf, prev))
+
+
+#: kernel launches per call are counted per wrapper: the modules by the
+#: names of ``cfg["launches"]``
+_WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
+             "amplify": amplify_kernel}
+
+
+def _launch_counts() -> dict:
+    return {n: (w.launch_count, dict(w.device_launches))
+            for n, w in _WRAPPERS.items()}
+
+
+def _credit(launches: dict, dev) -> None:
+    """A graph replay launches the kernels it captured: add them to their
+    wrappers' counts, as the launches themselves would."""
+    for n, k in launches.items():
+        if k:
+            w = _WRAPPERS[n]
+            w.launch_count += k
+            w.device_launches[dev] = w.device_launches.get(dev, 0) + k
+
+
+#: a side stream per card to capture on when the caller's current stream
+#: is the card's default stream (CUDA captures on no default stream)
+_CAPTURE_STREAMS: dict = {}
+
+
+class _Graph:
+    """One captured CUDA graph of a config's call, with what it keeps:
+    its page-locked staging buffer (the tables a replay uploads) and host
+    output, its reorder input ``prev``, the pair of B1 refill counters its
+    launches use, and its outputs (static: each replay overwrites them, so
+    a graph runs one call at a time, ``in_flight`` until finalized).
+
+    Built on the first call that finds every graph of its config in
+    flight: one eager warm-up call of the config on the same buffers
+    (builds and loads the kernels, caches B1's occupancy query, so that no
+    such call happens during the capture), then the capture of
+    :func:`_dispatch_steps` and the readback on the caller's current
+    stream (or a side stream), without waiting for any of it; the capture
+    and replay raise on failure."""
+
+    def __init__(self, cfg: dict, buf: torch.Tensor):
+        dev = cfg["device"]
+        self.cfg, self.in_flight = cfg, False
+        t0 = time.perf_counter()
+        self.staging = torch.empty(buf.shape, dtype=buf.dtype,
+                                   pin_memory=True)
+        self.staging.copy_(buf)
+        self.ctr = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.prev = (torch.zeros(cfg["B_total"], dtype=torch.int32,
+                                 device=dev) if cfg["reorder"] else None)
+        self.host = (torch.empty(cfg["n_out"], dtype=torch.float64,
+                                 pin_memory=True) if cfg["readback"] else None)
+        with cuda_lib.device_guard(dev), \
+                trace_kernel.own_counters(self.ctr):
+            _drain(_dispatch_steps(cfg, self.staging, self.prev))
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            stream = torch.cuda.current_stream(dev)
+            if stream == torch.cuda.default_stream(dev):
+                stream = _CAPTURE_STREAMS.setdefault(dev,
+                                                     torch.cuda.Stream(dev))
+            reserved = torch.cuda.memory_reserved(dev)
+            before = _launch_counts()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            try:
+                with torch.cuda.stream(stream):
+                    self.graph.capture_begin()
+                    try:
+                        call = _drain(_dispatch_steps(cfg, self.staging,
+                                                      self.prev))
+                        if self.host is not None:
+                            self.host.copy_(call.out, non_blocking=True)
+                    except BaseException:
+                        try:
+                            self.graph.capture_end()
+                        except RuntimeError:
+                            pass  # the capture's own error is the one
+                        raise
+                    self.graph.capture_end()
+            finally:
+                captured = {n: w.launch_count - before[n][0]
+                            for n, w in _WRAPPERS.items()}
+                for n, w in _WRAPPERS.items():
+                    w.launch_count = before[n][0]
+                    w.device_launches.clear()
+                    w.device_launches.update(before[n][1])
+            self.nodes = cuda_lib.graph_nodes(self.graph.raw_cuda_graph())
+            self.graph.instantiate()
+        if captured != cfg["launches"]:
+            raise RuntimeError(f"graph capture: launches {captured}, the "
+                               f"call makes {cfg['launches']}")
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        self.call = call._replace(out=call.out if self.host is None
+                                  else self.host)
+
+    def replay(self, buf, prev=None) -> _Call:
+        """Copy ``buf`` into the staging buffer and ``prev`` into the
+        graph's reorder input, replay the graph on the current stream of
+        its card, and record the ``done`` event there."""
+        cfg = self.cfg
+        dev = cfg["device"]
+        self.staging.copy_(buf)
+        done = None
+        with cuda_lib.device_guard(dev):
+            if self.prev is not None:
+                if prev is None:
+                    self.prev.zero_()
+                else:
+                    self.prev.copy_(prev, non_blocking=True)
+            self.graph.replay()
+            if self.host is not None:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+        self.in_flight = True
+        _credit(cfg["launches"], dev)
+        return self.call._replace(done=done, graph=self)
+
+
+class _GraphPipeline:
+    """The pipeline of a config with the kernels on a CUDA device: its
+    captured graphs, one per call in flight. A call replays a graph that
+    is not in flight, captured anew when there is none."""
+
+    def __init__(self, cfg: dict):
+        self.cfg = cfg
+        self.graphs: list = []
+
+    def steps(self, buf, prev=None):
+        """The call as one step: the replay."""
+        return self(buf, prev)
+        yield  # a generator of no steps before its return
+
+    def __call__(self, buf, prev=None) -> _Call:
+        graph = next((g for g in self.graphs if not g.in_flight), None)
+        if graph is None:
+            graph = _Graph(self.cfg, buf)
+            self.graphs.append(graph)
+            _evict(self.cfg["device"], self)
+        return graph.replay(buf, prev)
+
+
+def _release(call: _Call) -> None:
+    """The call is finalized: its graph may run again."""
+    if call.graph is not None:
+        call.graph.in_flight = False
+
+
+def _discard(call: _Call) -> None:
+    """Drop a dispatched call without reading it: wait for it, release its
+    graph."""
+    if call.done is not None:
+        call.done.synchronize()
+    _release(call)
+
+
+#: process-wide cache of pipelines, least recently used first, keyed by
+#: the whole ``cfg`` but its launch counts: everything that fixes a call's
+#: shapes, launch parameters and the host scalars it bakes in, but no
+#: table contents
+_PIPELINE_CACHE: OrderedDict = OrderedDict()
+#: configs the cache keeps at most
+MAX_PIPELINES = 64
+#: the share of a card's memory that the cached graphs' pools may hold
+#: (20 GiB of an 80 GB H100); past it, the graphs of the least recently
+#: used configs that are not in flight are dropped
+GRAPH_POOL_SHARE = 0.25
+
+
+def _pipeline(cfg: dict):
+    """The cached pipeline of ``cfg``, made on its first use."""
+    key = tuple((k, v) for k, v in cfg.items() if k != "launches")
+    pipe = _PIPELINE_CACHE.get(key)
+    if pipe is None:
+        pipe = (_GraphPipeline if cfg["graph"] else _EagerPipeline)(cfg)
+        _PIPELINE_CACHE[key] = pipe
+        while len(_PIPELINE_CACHE) > MAX_PIPELINES:
+            # a graph in flight stays alive through its call
+            _PIPELINE_CACHE.popitem(last=False)
+    _PIPELINE_CACHE.move_to_end(key)
+    return pipe
+
+
+def _evict(dev, keep: _GraphPipeline) -> None:
+    """Drop the graphs not in flight of the least recently used configs on
+    ``dev`` (never ``keep``'s) until the graphs' pools there hold at most
+    :data:`GRAPH_POOL_SHARE` of the card's memory."""
+    pipes = [p for p in _PIPELINE_CACHE.values()
+             if isinstance(p, _GraphPipeline) and p.cfg["device"] == dev]
+    held = sum(g.pool_bytes for p in pipes for g in p.graphs)
+    limit = GRAPH_POOL_SHARE * torch.cuda.get_device_properties(dev) \
+        .total_memory
+    dropped = False
+    for p in pipes:
+        if held <= limit:
+            break
+        if p is keep:
+            continue
+        held -= sum(g.pool_bytes for g in p.graphs if not g.in_flight)
+        p.graphs = [g for g in p.graphs if g.in_flight]
+        dropped = True
+    if dropped:
+        torch.cuda.empty_cache()
+
+
+def clear_pipeline_cache() -> None:
+    """Drop every cached pipeline (graphs in flight stay alive through
+    their calls) and return the cached device memory."""
+    _PIPELINE_CACHE.clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 #: the failure flags at the end of a call's output, one per code -1/-2/-3
@@ -620,12 +965,11 @@ def fail_bits(flags) -> int:
     return bits
 
 
-def failed_rays(call: _Call) -> np.ndarray:
-    """The flat source-grid indices of the call's failed rays, ascending
-    (the per-ray codes are read back here)."""
-    its = np.nonzero(call.codes.cpu().numpy() < 0)[0]
-    return call.problem.N_start + its.astype(np.int64) * \
-        call.problem.N_parallel
+def failed_rays(problem: CreateImageProblem, codes) -> np.ndarray:
+    """The flat source-grid indices of a call's failed rays, ascending,
+    from its per-ray ``codes`` (read back here)."""
+    its = np.nonzero(codes.cpu().numpy() < 0)[0]
+    return problem.N_start + its.astype(np.int64) * problem.N_parallel
 
 
 def raise_failure(problem, src, method, gidx, bits, failed_ray_path):
@@ -643,22 +987,3 @@ def raise_failure(problem, src, method, gidx, bits, failed_ray_path):
     err_util.write_failures(failed_ray_path, bits, np.array(failed), method,
                             problem.N, problem.euv_beam.dz, problem.gain)
     raise err_util.RayTraceError("Some rays failed")
-
-
-def _finalize(call: _Call, failed_ray_path: str):
-    """Wait for the call's readback; failure path (RayTraceImage.cpp:
-    427-430), reading the per-ray codes only when a ray failed; reference
-    layout; store on the problem."""
-    problem = call.problem
-    if call.done is not None:
-        call.done.synchronize()
-    host = call.out.numpy()
-    bits = fail_bits(host[-N_FLAGS:])
-    if bits:
-        raise_failure(problem, call.src, call.method, failed_rays(call),
-                      bits, failed_ray_path)
-    image_np = host[:call.n_image].copy()
-    i_ang_np = host[call.n_image:-N_FLAGS].copy()
-    problem.image = image_np
-    problem.I_ang = i_ang_np
-    return image_np, i_ang_np

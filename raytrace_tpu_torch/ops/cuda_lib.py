@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["load_library", "build_info", "check", "device_guard",
-           "count_launch", "NVCC_FLAGS", "CSRC_DIR"]
+           "count_launch", "graph_nodes", "NVCC_FLAGS", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch"
@@ -171,3 +171,31 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+#: ``CUgraphNodeType`` values (cuda.h) that :func:`graph_nodes` names
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_nodes(graph: int) -> dict:
+    """The nodes of a captured CUDA graph (a ``cudaGraph_t``, as
+    ``torch.cuda.CUDAGraph.raw_cuda_graph()`` gives it) by type:
+    ``kernel``, ``memcpy``, ``memset`` and ``other``, read through
+    ``libcuda``'s graph calls."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    for fn in (drv.cuGraphGetNodes, drv.cuGraphNodeGetType):
+        fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    check(drv.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(drv.cuGraphGetNodes(ctypes.c_void_p(graph), nodes,
+                              ctypes.byref(n)), "cuGraphGetNodes")
+    out = dict(kernel=0, memcpy=0, memset=0, other=0)
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        out[_NODE_TYPES.get(kind.value, "other")] += 1
+    return out

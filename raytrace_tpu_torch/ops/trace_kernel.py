@@ -17,6 +17,8 @@ sorts by; the Pallas kernel's ``trace_tiles(counts=True)``).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from raytrace_tpu_torch.models.problem import DeviceGain
@@ -94,9 +96,30 @@ def trace_batch(rays: dict, N: int, dz0: float, gain: DeviceGain,
 #: the refill's two counters per (device, stream): zero between launches,
 #: since each launch's last thread zeroes them
 _counters: dict = {}
+#: the pair that launches use in place of their stream's, inside
+#: :func:`own_counters`
+_own = None
+
+
+@contextlib.contextmanager
+def own_counters(pair: torch.Tensor):
+    """Launches inside use ``pair`` (two int64 zeros on their device) as
+    the refill's counters in place of their stream's. A captured CUDA
+    graph bakes in the pair it was captured with, so each graph keeps a
+    pair of its own: two graphs that shared one and ran at once (two
+    stream slots, two mesh entries of one card) would take each other's
+    rays."""
+    global _own
+    old, _own = _own, pair
+    try:
+        yield
+    finally:
+        _own = old
 
 
 def _counter(dev: torch.device, stream) -> torch.Tensor:
+    if _own is not None:
+        return _own
     key = (str(dev), stream)
     ctr = _counters.get(key)
     if ctr is None:

@@ -11,30 +11,31 @@ mesh with one ``psum`` at the end of the call. Here:
 
 * **Shards are strides.** On a mesh of D entries in a process group of P
   ranks, shard ``g = rank * D + d`` of ``G = P * D`` is an ordinary
-  single-device call (:func:`raytrace_tpu_torch.models.ray_tracer._dispatch`,
-  the same chunk loop and kernels B1, B3 and B2) on the problem with
-  ``N_start' = N_start + g * N_parallel`` and ``N_parallel' = G *
-  N_parallel``. That is the set of rays ``raytrace_tpu`` gives device g:
-  its stride index ``it = ci * chunk + g + j * G`` (chunk ``ci``, position
-  ``j``; ``chunk = per_dev * G``) runs over every ``it`` with ``it % G ==
-  g``, and ``N_start + it * N_parallel = N_start' + (it // G) *
-  N_parallel'``. The shard's own stride index ``it' = it // G`` therefore
-  names the physical ray through ``_finalize``'s own ``gidx = N_start' +
-  it' * N_parallel'``. A shard with no rays (more shards than rays)
-  yields zeros.
-* **Each CUDA entry** is dispatched under ``torch.cuda.device(dev)`` on a
-  compute stream of its own, so two entries on one card overlap, and on
-  several cards each launches on its own device. The tables depend on the
-  problem, not on the stride: the host packs them once, each device gets
-  one upload and one seed setup, on its current stream, and its entries'
-  streams wait for them.
+  single-device call (:func:`raytrace_tpu_torch.models.ray_tracer.
+  prepare_pipeline`'s, the same chunk loop and kernels B1, B3 and B2, its
+  partial left on the device) on the problem with ``N_start' = N_start +
+  g * N_parallel`` and ``N_parallel' = G * N_parallel``. That is the set
+  of rays ``raytrace_tpu`` gives device g: its stride index ``it = ci *
+  chunk + g + j * G`` (chunk ``ci``, position ``j``; ``chunk = per_dev *
+  G``) runs over every ``it`` with ``it % G == g``, and ``N_start + it *
+  N_parallel = N_start' + (it // G) * N_parallel'``. The shard's own
+  stride index ``it' = it // G`` therefore names the physical ray through
+  ``failed_rays``' own ``gidx = N_start' + it' * N_parallel'``. A shard
+  with no rays (more shards than rays) yields zeros.
+* **Each CUDA entry** runs under ``torch.cuda.device(dev)`` on a compute
+  stream of its own, so two entries on one card overlap, and on several
+  cards each runs on its own device. The host packs the tables once; each
+  entry's call uploads them on its own stream.
 * **The entries are dispatched together**, as ``shard_map`` runs every
-  shard at once: one host thread advances the entries' dispatches
-  (``ray_tracer._dispatch_steps``) in turns, one chunk of each entry a
-  turn, each under its own device and compute stream. Entry by entry, the
-  host would fill one card's launch queue before the next card got its
-  first launch. Each entry's chunks, their order and its f64 accumulation
-  are those of its own single call.
+  shard at once: one host thread advances the entries' calls in turns,
+  each under its own device and compute stream. With the kernels on a
+  card an entry's call is one replay of a CUDA graph of the shard's call,
+  captured on the entry's compute stream, so a turn is the whole call;
+  a call run from Python (the plain twins, or ``eager``) takes a turn per
+  chunk (``ray_tracer._dispatch_steps``), so that the host does not fill
+  one card's launch queue before the next card gets its first launch.
+  Each entry's chunks, their order and its f64 accumulation are those of
+  its own single call.
 * **The reduction** (the ``psum``): each entry's f64 [image | I_ang |
   failure flags] partial meets on ``mesh[0]`` (peer copies,
   :func:`~raytrace_tpu_torch.parallel.collectives.sum_reduce`, each
@@ -50,7 +51,7 @@ mesh with one ``psum`` at the end of the call. Here:
   counts, so the sum keeps every rank's failures. Each rank dumps only its
   own failed rays (the reference's per-rank ``write_failures``).
 * **Marks**: on CUDA a call records timing events (each card's start,
-  the end of each entry's first and last step, the reduction), which
+  the end of each entry's first and last turn, the reduction), which
   :func:`timeline` reads once the call is finalized.
 """
 
@@ -75,21 +76,33 @@ __all__ = ["create_image_sharded", "prepare_sharded", "PreparedShardedCall",
 
 
 class PreparedShardedCall(NamedTuple):
-    """A sharded call's plan (host only): the method, the mesh, and this
-    rank's shard problems, one per mesh entry."""
+    """A sharded call prepared (``raytrace_tpu``'s ``PreparedShardedCall``):
+    this rank's shard problems, one per mesh entry, each with its own
+    pipeline (:func:`ray_tracer.prepare_pipeline`'s: a CUDA graph of the
+    shard's call on the entry's card, its partial left there, or the chunk
+    loop), and the tables, packed once for every entry."""
 
     problem: CreateImageProblem
-    src: object            # the beam whose grids give the rays
     method: str
     mesh: tuple
     shards: tuple          # (device, shard problem) per mesh entry
+    pipeline: tuple        # each entry's pipeline
+    operands: tuple        # (packed tables,), the same for every entry
+    #: the call's ``N``, ``K``, ``method``, ``use_emis``, ``dims``,
+    #: ``reorder`` (of any entry) and ``launches`` (the entries' summed),
+    #: and ``entries``, each entry's own cfg
+    cfg: dict
 
 
 def prepare_sharded(problem: CreateImageProblem, mesh,
-                    compute_method: str = "auto") -> PreparedShardedCall:
+                    compute_method: str = "auto",
+                    chunk_size: int | None = None, c: float = 0.5,
+                    reorder: bool = False, eager: bool = False
+                    ) -> PreparedShardedCall:
     """Validate the problem, resolve the method on the mesh (``cuda`` on a
-    CPU mesh raises, as :func:`ray_tracer.resolve_method` does) and give
-    each of this rank's mesh entries its stride of the rays."""
+    CPU mesh raises, as :func:`ray_tracer.resolve_method` does), give each
+    of this rank's mesh entries its stride of the rays and prepare each
+    entry's call (``eager`` as in :func:`ray_tracer.prepare_pipeline`)."""
     mesh = make_mesh(devices=mesh)
     method = ray_tracer.resolve_method(compute_method, mesh[0])[0]
     src = ray_tracer._validate(problem)[1]
@@ -102,8 +115,20 @@ def prepare_sharded(problem: CreateImageProblem, mesh,
             problem, N_start=problem.N_start + (first + d) * step,
             N_parallel=G * step, image=None, I_ang=None))
         for d, dev in enumerate(mesh))
-    return PreparedShardedCall(problem=problem, src=src, method=method,
-                               mesh=mesh, shards=shards)
+    packed = ray_tracer._pack(problem, src, mesh[0])
+    entries = [ray_tracer._prepare(sp, method, dev, chunk_size, c, reorder,
+                                   readback=False, eager=eager, packed=packed)
+               for dev, sp in shards]
+    cfgs = tuple(e.cfg for e in entries)
+    cfg = {k: cfgs[0][k] for k in ("N", "K", "method", "use_emis", "dims")}
+    cfg.update(reorder=any(e["reorder"] for e in cfgs),
+               launches={n: sum(e["launches"][n] for e in cfgs)
+                         for n in cfgs[0]["launches"]},
+               entries=cfgs)
+    return PreparedShardedCall(problem=problem, method=method, mesh=mesh,
+                               shards=shards,
+                               pipeline=tuple(e.pipeline for e in entries),
+                               operands=(packed[0],), cfg=cfg)
 
 
 class _Marks(NamedTuple):
@@ -123,7 +148,6 @@ class _ShardedCall(NamedTuple):
     calls: list
     out: torch.Tensor      # reduced [image | I_ang | flags] f64 on the host
     done: object           # CUDA event of the readback (None on the CPU)
-    tables: dict           # each device's tables, alive until finalized
     ranks_summed: bool     # summed over the ranks on the card already
     marks: object          # _Marks on CUDA, None on the CPU
 
@@ -143,23 +167,22 @@ def _compute_stream(dev: torch.device, d: int):
 
 class MeshRunner:
     """Dispatches sharded calls on one mesh, and keeps what calls share:
-    each CUDA entry's compute stream; when ``streaming``, upload and
-    readback streams per card; with ``reorder``, each entry's reorder
-    feedback (keyed by the entry's own stride)."""
+    each CUDA entry's compute stream and, with ``reorder``, each entry's
+    reorder feedback (keyed by the entry's own stride). ``eager`` runs the
+    entries' chunk loops from Python on CUDA too, in turns, one chunk of
+    each entry a turn."""
 
     def __init__(self, mesh, compute_method: str = "auto",
                  chunk_size: int | None = None, c: float = 0.5,
-                 streaming: bool = False, reorder: bool = False):
+                 reorder: bool = False, eager: bool = False):
         self.mesh = make_mesh(devices=mesh)
         self.compute_method = compute_method
         ray_tracer.resolve_method(compute_method, self.mesh[0])
         self.chunk_size, self.c = chunk_size, c
+        self.reorder, self.eager = reorder, eager
         self.compute = [_compute_stream(dev, d) if dev.type == "cuda"
                         else None for d, dev in enumerate(self.mesh)]
-        self.io = ({dev: ray_tracer._Streams(dev) for dev in set(self.mesh)
-                    if dev.type == "cuda"} if streaming else {})
-        self.feedback = ([ray_tracer._Feedback() for _ in self.mesh]
-                         if reorder else [None] * len(self.mesh))
+        self.feedback = [ray_tracer._Feedback() for _ in self.mesh]
 
     @contextlib.contextmanager
     def _entry(self, d: int):
@@ -169,12 +192,15 @@ class MeshRunner:
             yield
 
     def dispatch(self, problem: CreateImageProblem) -> _ShardedCall:
-        """Enqueue every shard's chunks, the entries in turns, the
-        reduction on ``mesh[0]`` (and over the ranks on the card, in a
-        group of one rank per card) and its readback; nothing here waits
-        for a device."""
-        prep = prepare_sharded(problem, self.mesh, self.compute_method)
+        """Enqueue every entry's call, the entries in turns (a graph's
+        replay is one turn, a chunk loop's chunk is one), the reduction on
+        ``mesh[0]`` (and over the ranks on the card, in a group of one rank
+        per card) and its readback; nothing here waits for a device."""
+        prep = prepare_sharded(problem, self.mesh, self.compute_method,
+                               self.chunk_size, self.c, self.reorder,
+                               self.eager)
         cards = [dev for dev in dict.fromkeys(prep.mesh) if dev.type == "cuda"]
+        entries = prep.cfg["entries"]
 
         def event():
             return torch.cuda.Event(enable_timing=True)
@@ -185,27 +211,11 @@ class MeshRunner:
                         reduce=(event(), event())) if cards else None)
         for dev in cards:
             marks.start[dev].record(torch.cuda.current_stream(dev))
-        # the tables packed once; one upload and seed setup per device, on
-        # its current stream; the entries' streams wait for it, and the
-        # call keeps the tables until it is finalized
-        packed = ray_tracer._pack(problem, prep.src, prep.mesh[0])
-        tables, ready = {}, {}
-        for dev in dict.fromkeys(prep.mesh):
-            with device_guard(dev):
-                tables[dev] = ray_tracer._tables(problem, prep.src, dev,
-                                                 self.io.get(dev), packed)
-                if dev.type == "cuda":
-                    ready[dev] = torch.cuda.Event()
-                    ready[dev].record(torch.cuda.current_stream(dev))
-        # the tables are up already, and the partial stays on the device:
-        # no side streams
-        steps = [ray_tracer._dispatch_steps(
-            sp, prep.method, dev, self.chunk_size, self.c, None,
-            self.feedback[d], readback=False, tables=tables[dev])
-            for d, (dev, sp) in enumerate(prep.shards)]
-        for d, dev in enumerate(prep.mesh):
-            if dev.type == "cuda":
-                self.compute[d].wait_event(ready[dev])
+        steps = []
+        for d, pipe in enumerate(prep.pipeline):
+            with self._entry(d):
+                steps.append(pipe.steps(*self.feedback[d].operands(
+                    entries[d], prep.operands)))
         calls = [None] * len(steps)
         live = list(range(len(steps)))
         turn = 0
@@ -216,6 +226,7 @@ class MeshRunner:
                         next(steps[d])
                     except StopIteration as stop:
                         calls[d] = stop.value
+                        self.feedback[d].update(entries[d], calls[d])
                         live.remove(d)
                     if turn == 0 and marks is not None:
                         marks.first[d].record(self.compute[d])
@@ -243,10 +254,9 @@ class MeshRunner:
                 marks.reduce[1].record(torch.cuda.current_stream(home))
             if on_card:
                 total = collectives.rank_sum_on_card(total)
-            out, done = ray_tracer._readback(total, total.device,
-                                             self.io.get(total.device))
+            out, done = ray_tracer._readback(total, total.device)
         return _ShardedCall(prep=prep, calls=calls, out=out, done=done,
-                            tables=tables, ranks_summed=on_card, marks=marks)
+                            ranks_summed=on_card, marks=marks)
 
 
 def timeline(call: _ShardedCall) -> dict | None:
@@ -294,23 +304,41 @@ def create_image_sharded(problem: CreateImageProblem, mesh,
 def _finalize_sharded(call: _ShardedCall, failed_ray_path: str
                       ) -> tuple[np.ndarray, np.ndarray]:
     """Wait for the reduced readback, sum it over the ranks, then the
-    failure path and the layout contract, as ``ray_tracer._finalize``."""
+    failure path and the layout contract, as
+    ``ray_tracer._finalize_call``; the entries' graphs may run again
+    after."""
+    problem = call.prep.problem
+    try:
+        if call.done is not None:
+            call.done.synchronize()
+        host = call.out.numpy()
+        if not call.ranks_summed:
+            (host,) = collectives.host_sum_arrays([host])
+        bits = ray_tracer.fail_bits(host[-ray_tracer.N_FLAGS:])
+        if bits:
+            # this rank's failed rays over its shards, in the single
+            # call's (ascending) order
+            gidx = np.sort(np.concatenate(
+                [ray_tracer.failed_rays(sp, c.codes)
+                 for (_dev, sp), c in zip(call.prep.shards, call.calls)]))
+            ray_tracer.raise_failure(problem,
+                                     ray_tracer._source_beam(problem),
+                                     call.prep.cfg["method"], gidx, bits,
+                                     failed_ray_path)
+        n_image = call.calls[0].n_image
+        image = host[:n_image].copy()
+        i_ang = host[n_image:-ray_tracer.N_FLAGS].copy()
+    finally:
+        for c in call.calls:
+            ray_tracer._release(c)
+    problem.image, problem.I_ang = image, i_ang
+    return image, i_ang
+
+
+def _discard_sharded(call: _ShardedCall) -> None:
+    """Drop a dispatched sharded call without reading it: wait for it,
+    release the entries' graphs."""
     if call.done is not None:
         call.done.synchronize()
-    host = call.out.numpy()
-    if not call.ranks_summed:
-        (host,) = collectives.host_sum_arrays([host])
-    first = call.calls[0]
-    bits = ray_tracer.fail_bits(host[-ray_tracer.N_FLAGS:])
-    if bits:
-        # this rank's failed rays over its shards, in the single call's
-        # (ascending) order
-        gidx = np.sort(np.concatenate(
-            [ray_tracer.failed_rays(c) for c in call.calls]))
-        ray_tracer.raise_failure(call.prep.problem, first.src, first.method,
-                                 gidx, bits, failed_ray_path)
-    problem = call.prep.problem
-    problem.image = host[:first.n_image].copy()
-    problem.I_ang = host[first.n_image:-ray_tracer.N_FLAGS].copy()
-    return problem.image, problem.I_ang
-
+    for c in call.calls:
+        ray_tracer._release(c)

@@ -63,7 +63,8 @@ def seed_factors(p, n=None, device="cpu"):
     import torch
 
     from raytrace_tpu_torch.models.problem import (seed_arrays,
-                                                   seed_from_tensors)
+                                                   seed_from_tensors,
+                                                   seed_scalars)
     from raytrace_tpu_torch.models.ray_tracer import _unflatten_rays
     from raytrace_tpu_torch.ops import seed as seed_ops
 
@@ -74,7 +75,7 @@ def seed_factors(p, n=None, device="cpu"):
              .float() for g in (src.x, src.y, src.a, src.b)]
     dseed = seed_from_tensors({k: torch.as_tensor(v, device=device)
                                for k, v in seed_arrays(p.seed).items()},
-                              p.seed)
+                              seed_scalars(p.seed))
     tabs = seed_ops.make_entry_seed_tables(dseed, grids, p.euv_beam.nv)
     ijkm = torch.arange(min(n or total, total), device=device)
     return (seed_ops.seed_factor(tabs, *_unflatten_rays(ijkm, dims)),

@@ -32,23 +32,33 @@ in the checkout), or the snapshot that ``--ase`` / ``--seed`` names.
 Each synchronous row records its rays, the best, median, average and
 standard deviation of s/call, the reference's stability booleans (recorded,
 not gates), every call's stage split, the launches per call of B1, B2 and
-B3 (their wrappers' ``launch_count``), and ``mem_after_<row>``: the peak of
-allocated bytes since the row began (``max_memory_allocated`` after
-``reset_peak_memory_stats``), the reserved bytes and the card's total, or
-``{"unavailable": "cpu"}`` on the CPU. Stream rows record the same memory
-and launches, and per round ``fill_s`` (first yield) and ``yield_s``
-(spacing of the later yields), as ``testing.time_stream_detailed`` gives
-them, with steady statistics over the pooled ``yield_s``.
+B3 (their wrappers' ``launch_count``; a graph replay adds the launches it
+captured), and ``mem_after_<row>``: the peak of allocated bytes since the
+row began (``max_memory_allocated`` after ``reset_peak_memory_stats``; the
+warmup call's eager run and capture allocate what the call needs, which a
+replay keeps in the graph's pool), the reserved bytes and the card's
+total, or ``{"unavailable": "cpu"}`` on the CPU. Stream rows (graph
+replays, a graph per call in flight, also with ``--eager``) record the
+same memory and launches, and per round ``fill_s`` (first yield) and
+``yield_s`` (spacing of the later yields), as
+``testing.time_stream_detailed`` gives them, with steady statistics over
+the pooled ``yield_s``.
 
 Stage split of a synchronous call, from consecutive ``perf_counter`` marks
-(disjoint stages that add up to ``total_s``): ``prep_s``, the limits and
-grid checks and the host packing of the tables (``_validate``, ``_pack``);
-on ASE rows ``dispatch_s``, the upload and every chunk's launches
-(``_tables``, ``_dispatch``; the host waits only where the launch queue is
-full); on seeded rows ``upload_s``, ``_tables`` and a synchronise (the copy
-and the entry seed's tables), then ``dispatch_s``, ``_dispatch`` on those
-tables; ``wait_s``, ``_finalize``: the wait for the kernels and the one
-readback.
+(disjoint stages that add up to ``total_s``), as the root bench splits its
+calls: ``prep_s``, ``prepare_pipeline`` (the limits and grid checks, the
+host packing of the tables, the cached pipeline's lookup); ``dispatch_s``,
+the pipeline's call (on the card the copy of the tables into the graph's
+staging buffer and one graph replay; with ``--eager`` the upload and every
+chunk's launches from Python); ``wait_s``, ``_finalize_call`` (the wait for
+the device and the one readback). Each row starts with an empty pipeline
+cache (``ray_tracer.clear_pipeline_cache``), so its warmup call, outside
+the timed calls, captures the row's graph: ``<row>_graph`` records that
+graph's warm-up and capture seconds, its nodes by type and its pool's
+bytes (None with ``--eager`` or on the CPU). ``<row>_busy`` is the
+device time of three more calls under ``torch.profiler`` (every CUDA
+event's own time) per call, over the row's median s/call (None on the
+CPU).
 
 Gates, each a field, listed in ``gates``; any that fails makes the exit
 code 1:
@@ -79,17 +89,24 @@ With ``--mesh N`` the run adds, after every row above, a row
 ``speedup`` (the same row's best 1-card s/call over its best mesh s/call),
 its launches per call per card, ``mem_after_<row>_mesh<N>`` (each card's
 peak over the row's sharded calls) and each call's split: ``dispatch_s``
-(host: the tables packed once and uploaded to each card, the entries'
-launches in turns, the reduction and readback enqueued), ``wait_s``
+(host: the tables packed once, each entry's graph replayed in turn -- or
+its chunks launched in turns with ``--eager`` -- the reduction and
+readback enqueued), ``wait_s``
 (host: ``_finalize_sharded``), ``reduce_s`` (device: the reduction on the
 first card, peer copies and adds once every entry is done; it lies inside
 ``wait_s``) and ``cards``, each entry's first and last marks (the end of
-its first chunk and of its last step) in ms against its card's start
-(``sharding.timeline``). Gates: ``<row>_mesh<N>_single_check``, the
-pristine unit's sharded image and I_ang within a relative L2 of 1e-12 of
-its 1-card call, and ``mesh<N>_golden_check``, both fixtures through the
+its first and of its last turn) in ms against its card's start
+(``sharding.timeline``), ``<row>_mesh<N>_graphs`` (each entry's graph, as
+``<row>_graph``) and ``<row>_mesh<N>_busy`` (the cards' device time over
+the mesh's median s/call times the cards). Gates:
+``<row>_mesh<N>_single_check``, the pristine unit's sharded image and
+I_ang within a relative L2 of 1e-12 of its 1-card call, and ``mesh<N>_golden_check``, both fixtures through the
 mesh against their goldens as ``golden_check``. Without ``--mesh`` nothing
 of this runs and the keys are as above.
+
+``--eager`` runs every call's chunk loop from Python on the card, as before
+the calls were CUDA graphs (``prepare_pipeline(eager=True)``), for the two
+to be compared in one run.
 
 Without a CUDA device the tool exits non-zero unless ``--cpu`` asks for the
 CPU (the plain twins; ``--mesh`` then takes N CPU entries). A row that
@@ -115,7 +132,6 @@ from raytrace_tpu_torch.models import ray_tracer
 from raytrace_tpu_torch.models.ray_tracer import (DEFAULT_CHUNK, create_image,
                                                   create_image_stream)
 from raytrace_tpu_torch.ops import amplify_kernel, deposit_kernel, trace_kernel
-from raytrace_tpu_torch.ops.cuda_lib import device_guard
 from raytrace_tpu_torch.parallel import sharding
 from raytrace_tpu_torch.parallel.mesh import make_mesh
 from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE, fresh_problem,
@@ -177,10 +193,12 @@ SUMMARY_KEYS = (
     "seed_scale4_best_seconds_per_call", "seed_scale4_cross_backend_check",
     "scale64_best_seconds_per_call", "scale_flat_check", "scale_flat_ratio")
 
-SCHEMA = ("sync *_calls: disjoint wall intervals, total=prep+dispatch+wait "
-          "(+upload on seeded rows); prep=_validate+_pack (host), dispatch="
-          "upload+launches (ASE) or launches (seeded), upload=_tables+"
-          "synchronise, wait=_finalize (kernels+readback). stream *_rounds: "
+SCHEMA = ("sync *_calls: disjoint wall intervals, total=prep+dispatch+wait; "
+          "prep=prepare_pipeline (host), dispatch=pipeline(*operands) (a "
+          "graph replay, or upload+launches when eager), wait=_finalize_call "
+          "(device+readback). <row>_graph: the row's graph (capture outside "
+          "the timed calls); <row>_busy: profiled device time/median s/call. "
+          "stream *_rounds: "
           "fill=first-yield latency, yield_s=steady spacing, round_wall="
           "fill+sum(yield_s); steady stats pool yield_s. Stability booleans "
           "(std<=10%avg and max<=avg+15%, CreateImage.cpp:174-181) are "
@@ -192,6 +210,7 @@ class _Ctx(NamedTuple):
     dev: torch.device
     method: str          # "cuda" (the kernels) or "cpu" (the plain twins)
     failed_ray_path: str
+    eager: bool = False  # the chunk loop from Python in place of graphs
 
 
 def _sync(dev) -> None:
@@ -231,30 +250,44 @@ def _per_call(before: dict, n: int) -> dict:
     return {k: (v - before[k]) / n for k, v in _launch_counts().items()}
 
 
-def _timed_call(ctx: _Ctx, p, split_upload: bool) -> dict:
+def _timed_call(ctx: _Ctx, p) -> dict:
     """One synchronous call through the call path's own stages (what
     ``create_image`` runs), with the stage split."""
-    dev = ctx.dev
     t0 = time.perf_counter()
-    src = ray_tracer._validate(p)[1]
-    packed = ray_tracer._pack(p, src, dev)
+    prep = ray_tracer.prepare_pipeline(p, ctx.method, ctx.dev,
+                                       eager=ctx.eager)
     t1 = time.perf_counter()
-    with device_guard(dev):
-        tables = ray_tracer._tables(p, src, dev, packed=packed)
-        if split_upload:
-            _sync(dev)
-        t2 = time.perf_counter()
-        call = ray_tracer._dispatch(p, ctx.method, dev, None, 0.5,
-                                    tables=tables)
+    outs = prep.pipeline(*prep.operands)
+    t2 = time.perf_counter()
+    ray_tracer._finalize_call(p, prep, outs, ctx.failed_ray_path)
     t3 = time.perf_counter()
-    ray_tracer._finalize(call, ctx.failed_ray_path)
-    t4 = time.perf_counter()
-    c = {"total_s": t4 - t0, "prep_s": t1 - t0, "wait_s": t4 - t3}
-    if split_upload:
-        c.update(upload_s=t2 - t1, dispatch_s=t3 - t2)
-    else:
-        c["dispatch_s"] = t3 - t1
-    return c
+    return {"total_s": t3 - t0, "prep_s": t1 - t0, "dispatch_s": t2 - t1,
+            "wait_s": t3 - t2}
+
+
+def _graphs(pipeline) -> list | None:
+    """The graphs of a pipeline: each one's warm-up and capture seconds,
+    nodes by type and pool bytes (None for a pipeline run from Python)."""
+    if not isinstance(pipeline, ray_tracer._GraphPipeline):
+        return None
+    return [dict(warmup_s=g.warmup_s, capture_s=g.capture_s, nodes=g.nodes,
+                 pool_bytes=g.pool_bytes) for g in pipeline.graphs]
+
+
+def _device_s(dev, fn, n: int = 3) -> float | None:
+    """Device seconds per call of ``fn`` over ``n`` calls under
+    torch.profiler: every CUDA event's own time, on every card (None on
+    the CPU)."""
+    if dev.type != "cuda":
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e6
 
 
 def _row_stats(prefix: str, totals, n_rays: int) -> dict:
@@ -285,20 +318,28 @@ def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
     """A synchronous row: one warmup call on the unperturbed unit (the
     result the twins are held against), then ``n`` timed calls."""
     prefix = name + "_"
+    ray_tracer.clear_pipeline_cache()
     _reset_peak(ctx.dev)
     pristine = fresh_problem(source, scale)
     t0 = time.perf_counter()
-    got = create_image(pristine, ctx.method, device=ctx.dev,
-                       failed_ray_path=ctx.failed_ray_path)
+    _timed_call(ctx, pristine)
     warmup_s = time.perf_counter() - t0
+    got = (pristine.image, pristine.I_ang)
     probs = perturbed_problems(source, n, salt=salt, scale=scale)
     before = _launch_counts()
-    calls = [_timed_call(ctx, p, pristine.seed is not None) for p in probs]
+    calls = [_timed_call(ctx, p) for p in probs]
     row = _row_stats(prefix, [c["total_s"] for c in calls],
                      ray_count(pristine))
     row.update({f"{prefix}calls": calls, f"{prefix}warmup_s": warmup_s,
                 f"{prefix}launches_per_call": _per_call(before, n),
                 f"mem_after_{name}": _memory(ctx.dev)})
+    prep = ray_tracer.prepare_pipeline(pristine, ctx.method, ctx.dev,
+                                       eager=ctx.eager)
+    row[f"{prefix}graph"] = _graphs(prep.pipeline)
+    dev_s = _device_s(ctx.dev, lambda: _timed_call(ctx, probs[0]))
+    row[f"{prefix}device_s_per_call"] = dev_s
+    row[f"{prefix}busy"] = (None if dev_s is None else
+                            dev_s / row[f"{prefix}median_seconds_per_call"])
     check = None
     if twin:
         want, twin_s = _twin(ctx, source, scale)
@@ -334,7 +375,7 @@ def _readback_probe(dev) -> dict:
     ts = []
     for b in bufs:
         t0 = time.perf_counter()
-        _host, done = ray_tracer._readback(b, dev, None)
+        _host, done = ray_tracer._readback(b, dev)
         if done is not None:
             done.synchronize()
         ts.append(time.perf_counter() - t0)
@@ -348,12 +389,13 @@ def _stream_row(ctx: _Ctx, name: str, source, scale, n_units: int,
     """A stream row over fresh distinct-table units; afterwards every
     yield is held against the synchronous call on its unit."""
     prefix = name + "_"
+    ray_tracer.clear_pipeline_cache()
     _reset_peak(ctx.dev)
     stream = functools.partial(create_image_stream, compute_method=ctx.method,
                                device=ctx.dev, depth=depth,
                                failed_ray_path=ctx.failed_ray_path)
-    for _ in stream(perturbed_problems(source, 2, salt=99, scale=scale)):
-        pass  # warmup: the stream's side streams and their memory pools
+    for _ in stream(perturbed_problems(source, depth, salt=99, scale=scale)):
+        pass  # warmup: a graph for each call in flight
     seen = []
 
     def make_stream(units):
@@ -424,7 +466,8 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
     timed units."""
     prefix = f"{name}_mesh{len(mesh)}_"
     cards = [d for d in dict.fromkeys(mesh) if d.type == "cuda"]
-    runner = sharding.MeshRunner(mesh, ctx.method)
+    ray_tracer.clear_pipeline_cache()
+    runner = sharding.MeshRunner(mesh, ctx.method, eager=ctx.eager)
     single = create_image(fresh_problem(source, scale), ctx.method,
                           device=ctx.dev, failed_ray_path=ctx.failed_ray_path)
     # the peaks of the sharded calls alone
@@ -459,6 +502,14 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
         f"mem_after_{name}_mesh{len(mesh)}": (
             {str(d): _memory(d) for d in cards} if cards
             else _memory(mesh[0]))})
+    prep = sharding.prepare_sharded(pristine, mesh, ctx.method,
+                                    eager=ctx.eager)
+    row[f"{prefix}graphs"] = [_graphs(pipe) for pipe in prep.pipeline]
+    dev_s = _device_s(ctx.dev, lambda: _mesh_call(ctx, runner, probs[0]))
+    row[f"{prefix}device_s_per_call"] = dev_s
+    row[f"{prefix}busy"] = (
+        None if dev_s is None else
+        dev_s / (len(cards) * row[f"{prefix}median_seconds_per_call"]))
     return row
 
 
@@ -507,7 +558,8 @@ def _log(msg: str) -> None:
 
 def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
         stream_rounds=STREAM_ROUNDS, twins=TWINS, ase=None, seed=None,
-        out_dir=os.path.dirname(DEFAULT_OUT), mesh=None) -> dict:
+        out_dir=os.path.dirname(DEFAULT_OUT), mesh=None,
+        eager=False) -> dict:
     """Run the bench's rows on ``device``; returns the artifact.
 
     ``shapes``: the ASE and seeded ``synthetic_problem`` shapes;
@@ -518,16 +570,17 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
     replace the synthetic sources; ``out_dir``: where a failing call's
     failed-ray dump goes; ``mesh``: N for the ``_mesh<N>`` rows of
     :data:`MESH_ROWS` (each with its 1-card row in ``reps``) on
-    ``make_mesh(N)``, or on N CPU entries for a CPU ``device``. Raises
-    whatever a row raises.
+    ``make_mesh(N)``, or on N CPU entries for a CPU ``device``; ``eager``:
+    the synchronous and mesh rows' calls run from Python on the card in
+    place of graph replays. Raises whatever a row raises.
     """
     dev = torch.device(device)
     ctx = _Ctx(dev, "cuda" if dev.type == "cuda" else "cpu",
-               os.path.join(out_dir, "bench_failed_rays.dat"))
+               os.path.join(out_dir, "bench_failed_rays.dat"), eager)
     os.makedirs(out_dir, exist_ok=True)
     sources = (ase or functools.partial(synthetic_problem, **shapes[0]),
                seed or functools.partial(synthetic_problem, **shapes[1]))
-    res = {"method": ctx.method,
+    res = {"method": ctx.method, "eager": eager,
            "platform": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
            "schema": SCHEMA,
@@ -632,7 +685,7 @@ def summary(res: dict) -> dict:
     prov = res["provenance"]
     s = {k: res[k] for k in ("metric", "value", "unit",
                              "best_seconds_per_call", "stability_ok",
-                             "golden_check", "gates_ok", "method",
+                             "golden_check", "gates_ok", "method", "eager",
                              "platform") if k in res}
     s.update(card=prov["card"], git_commit=prov["git_commit"][:12],
              torch=prov["torch"], cuda=prov["cuda"],
@@ -656,6 +709,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="also time the sharded call on make_mesh(N) "
                     "(rows <row>_mesh<N>)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the synchronous and mesh rows' calls from "
+                    "Python in place of CUDA graph replays")
     args = ap.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device (--cpu runs the plain twins "
@@ -664,7 +720,7 @@ def main(argv=None) -> int:
               reps=REPS, stream_rounds=STREAM_ROUNDS, twins=TWINS,
               ase=args.ase, seed=args.seed,
               out_dir=os.path.dirname(os.path.abspath(args.out)),
-              mesh=args.mesh)
+              mesh=args.mesh, eager=args.eager)
     full = json.dumps(res)
     with open(args.out, "w") as f:
         f.write(full + "\n")

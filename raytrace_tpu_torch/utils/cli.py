@@ -69,10 +69,12 @@ from raytrace_tpu_torch.io.loader import load_input
 from raytrace_tpu_torch.models.ray_tracer import (available_methods,
                                                   create_image,
                                                   create_image_stream,
+                                                  prepare_pipeline,
                                                   resolve_method)
 from raytrace_tpu_torch.parallel import collectives, distributed
 from raytrace_tpu_torch.parallel.mesh import make_mesh
-from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+from raytrace_tpu_torch.parallel.sharding import (create_image_sharded,
+                                                  prepare_sharded)
 from raytrace_tpu_torch.testing import time_stream_detailed
 from raytrace_tpu_torch.utils.pio import pout
 from raytrace_tpu_torch.utils.stats import (TimingStats, check_ans,
@@ -182,11 +184,14 @@ def _print_profile(prof, wall_s: float, calls: int, top: int = 12) -> None:
                    f"{e.count / calls:7.1f}x  {e.key[:100]}\n")
 
 
-def _stream_rows(filename, options, label, rows, **stream_kw) -> int:
+def _stream_rows(filename, options, label, rows, problem, **stream_kw
+                 ) -> int:
     """Time ``options.stream`` distinct-table units through
     create_image_stream (two rounds; ``stream_kw`` picks the method and
-    device, or the mesh); append the per-call and steady rows. Returns the
-    number of non-finite results."""
+    device, or the mesh); append the per-call and steady rows, a
+    ``-reorder`` row labelled by what ran (``cfg["reorder"]`` of
+    ``problem``'s prepared call, as raytrace_tpu's CLI labels it). Returns
+    the number of non-finite results."""
     n_bad = 0
 
     def make_stream(units):
@@ -200,7 +205,12 @@ def _stream_rows(filename, options, label, rows, **stream_kw) -> int:
     distributed.barrier()
     per_call, detail = time_stream_detailed(filename, options.stream, 2,
                                             make_stream, scale=options.scale)
-    tag = "+stream+reorder" if options.reorder else "+stream"
+    ran_reorder = options.reorder and (
+        prepare_sharded(problem, stream_kw["mesh"], reorder=True)
+        if "mesh" in stream_kw else
+        prepare_pipeline(problem, stream_kw["compute_method"],
+                         stream_kw["device"], reorder=True)).cfg["reorder"]
+    tag = "+stream+reorder" if ran_reorder else "+stream"
     rows.append((f"{label}{tag}", TimingStats.of(_gather_times(per_call))))
     yields = [y for d in detail for y in d["yield_s"]]
     if yields:
@@ -242,7 +252,8 @@ def run_tests(filename: str, options: Options) -> int:
         n_errors += _check(image0, i_ang0, *out["r"], stats, options)
         if options.stream > 0:
             n_errors += _stream_rows(filename, options, label, rows,
-                                     compute_method=method, device=device)
+                                     problem, compute_method=method,
+                                     device=device)
 
     if multichip:
         mesh = make_mesh()
@@ -256,7 +267,7 @@ def run_tests(filename: str, options: Options) -> int:
         n_errors += _check(image0, i_ang0, *out["r"], stats, options)
         if options.stream > 0:
             n_errors += _stream_rows(filename, options, label, rows,
-                                     mesh=mesh)
+                                     problem, mesh=mesh)
 
     w = max(14, max((len(r[0]) for r in rows), default=14))
     pout.write(f"\n{'METHOD':>{w}s} {'Avg':>8s} {'Min':>8s} {'Max':>8s} "

@@ -30,7 +30,8 @@ from raytrace_tpu.ops.stepper import TraceResult as JaxTraceResult
 from raytrace_tpu.testing import synthetic_problem as jax_synthetic
 
 from raytrace_tpu_torch.convert import problem_from_jax
-from raytrace_tpu_torch.models.problem import seed_arrays, seed_from_tensors
+from raytrace_tpu_torch.models.problem import (seed_arrays, seed_from_tensors,
+                                               seed_scalars)
 from raytrace_tpu_torch.ops import amplify_kernel, seed as seed_ops
 from raytrace_tpu_torch.testing import amplify_inputs
 
@@ -83,7 +84,8 @@ def test_seed_factor_vs_jax_entry_seed():
     K, src = p.euv_beam.nv, p.seed_beam
     grids = [np.asarray(g, np.float64) for g in (src.x, src.y, src.a, src.b)]
     dseed = seed_from_tensors({k: torch.from_numpy(v) for k, v in
-                               seed_arrays(p.seed).items()}, p.seed)
+                               seed_arrays(p.seed).items()},
+                              seed_scalars(p.seed))
     tabs = seed_ops.make_entry_seed_tables(
         dseed, [torch.from_numpy(g.astype(np.float32)) for g in grids], K)
     tabs_j = jax_seed.make_entry_seed_tables(

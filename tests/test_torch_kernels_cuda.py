@@ -404,3 +404,82 @@ def test_sharded_on_every_card_matches_single(two_cards, seeded):
             assert w.device_launches.get(dev, 0) > before[w].get(dev, 0)
     for g, w in zip(got, want):
         assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
+
+
+def _eager(p, device):
+    """The call run from Python on the card: the reference a graph replay
+    is held against."""
+    from raytrace_tpu_torch.models import ray_tracer
+
+    prep = ray_tracer.prepare_pipeline(p, "cuda", device, eager=True)
+    return ray_tracer._finalize_call(p, prep, prep.pipeline(*prep.operands),
+                                     "unused.dat")
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_graph_replay_matches_eager(cuda, seeded):
+    """create_image replays one captured graph over units of one shape with
+    different tables: each within 1e-12 of its eager call, each replay
+    adding the captured launches to the wrappers' counts."""
+    import functools
+
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    source = functools.partial(synthetic_problem, seeded=seeded)
+    units = perturbed_problems(source, 3, salt=7)
+    prep = ray_tracer.prepare_pipeline(units[0], "cuda", cuda)
+    assert isinstance(prep.pipeline, ray_tracer._GraphPipeline)
+    for u, w in zip(units, [_eager(u, cuda) for u in
+                            perturbed_problems(source, 3, salt=7)]):
+        before = trace_kernel.launch_count
+        _close(create_image(u, "cuda", device=cuda), w)
+        assert (trace_kernel.launch_count - before
+                >= prep.cfg["launches"]["trace"] > 0)
+    graphs = ray_tracer.prepare_pipeline(units[0], "cuda",
+                                         cuda).pipeline.graphs
+    assert len(graphs) == 1 and graphs[0].nodes["kernel"] > 0
+    assert not graphs[0].in_flight
+
+
+def test_two_stream_slots_replayed_back_to_back(cuda):
+    """Two calls of one shape in flight at once replay two graphs, each
+    with its own staging buffer, outputs and B1 counters; both agree with
+    their eager calls."""
+    import functools
+
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    source = functools.partial(synthetic_problem, seeded=True)
+    want = [_eager(u, cuda) for u in perturbed_problems(source, 2, salt=9)]
+    units = perturbed_problems(source, 2, salt=9)
+    preps = [ray_tracer.prepare_pipeline(u, "cuda", cuda) for u in units]
+    outs = [prep.pipeline(*prep.operands) for prep in preps]
+    assert outs[0].graph is not outs[1].graph
+    assert outs[0].graph.ctr.data_ptr() != outs[1].graph.ctr.data_ptr()
+    for u, prep, o, w in zip(units, preps, outs, want):
+        _close(ray_tracer._finalize_call(u, prep, o, "unused.dat"), w)
+    for o in outs:
+        assert not o.graph.in_flight and not o.graph.ctr.any()
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_graph_on_a_card_not_current(two_cards, seeded):
+    """A call on cuda:1 with cuda:0 current captures and replays its graph
+    on cuda:1, within 1e-12 of the eager call there, cuda:0 left
+    current."""
+    from raytrace_tpu_torch import create_image
+
+    torch.cuda.set_device(0)
+    want = _eager(synthetic_problem(seeded=seeded), "cuda:1")
+    for _ in range(2):
+        _close(create_image(synthetic_problem(seeded=seeded), "cuda",
+                            device="cuda:1"), want)
+        assert torch.cuda.current_device() == 0

@@ -107,9 +107,9 @@ def test_turns_vs_jax_sharded(seeded):
 def test_dispatch_steps_one_a_chunk():
     """``_dispatch_steps`` yields once a chunk and returns the call that
     ``_dispatch`` returns, bit for bit."""
-    p = synthetic_problem(**SMALL)
-    steps = ray_tracer._dispatch_steps(p, "cpu", torch.device("cpu"), CHUNK,
-                                       0.5)
+    prep = ray_tracer.prepare_pipeline(synthetic_problem(**SMALL), "cpu",
+                                       chunk_size=CHUNK)
+    steps = ray_tracer._dispatch_steps(prep.cfg, *prep.operands)
     n = 0
     while True:
         try:

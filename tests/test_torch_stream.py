@@ -97,15 +97,16 @@ def test_stream_failure_at_its_position(tmp_path):
 
 
 def test_stream_depth_bounds_dispatch(monkeypatch):
-    """With depth=2 the first yield comes after exactly 2 dispatches."""
+    """With depth=2 the first yield comes after exactly 2 dispatches (each
+    unit prepared once, as raytrace_tpu's stream prepares it)."""
     calls = []
-    real = ray_tracer._dispatch
+    real = ray_tracer.prepare_pipeline
 
     def counting(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(ray_tracer, "_dispatch", counting)
+    monkeypatch.setattr(ray_tracer, "prepare_pipeline", counting)
     probs = [synthetic_problem(nx=4, ny=3, na=2, nb=2, nv=3, rng=i)
              for i in range(4)]
     gen = create_image_stream(probs, "cpu", depth=2)
@@ -165,10 +166,8 @@ def test_reorder_dispatch_follows_feedback(monkeypatch):
     dims = (src.nx, src.ny, src.na, src.nb)
     B, chunk = 800, 300
     rng = np.random.default_rng(11)
-    fb = ray_tracer._Feedback()
-    fb.key = (B, chunk, dims, 0, 1)
-    fb.counts = torch.from_numpy(rng.integers(0, 500, B).astype(np.int32))
-    prev = fb.counts.clone()
+    prev = torch.from_numpy(rng.integers(0, 500, B).astype(np.int32))
+    given = prev.clone()
     seen = []
     real = stepper.trace_batch_plain
 
@@ -178,8 +177,8 @@ def test_reorder_dispatch_follows_feedback(monkeypatch):
 
     monkeypatch.setattr(stepper, "trace_batch_plain", recording)
     call = ray_tracer._dispatch(p, "cpu", torch.device("cpu"), chunk, 0.5,
-                                feedback=fb)
-    ray_tracer._finalize(call, "unused.dat")
+                                prev=given)
+    assert torch.equal(given, prev)
     grid_y = torch.from_numpy(np.asarray(src.y).astype(np.float32))
     row = ray_tracer.reorder_row_geom(p)
     for ci, start in enumerate(range(0, B, chunk)):
@@ -199,8 +198,7 @@ def test_reorder_dispatch_follows_feedback(monkeypatch):
     _, want = real({"x": grids[0][i], "y": grids[1][j], "a": grids[2][k],
                     "b": grids[3][m]}, p.N, src.dz, prepare_gain(p.gain), 1,
                    counts=True)
-    assert torch.equal(fb.counts, want)
-    assert fb.key == (B, chunk, dims, 0, 1) and want.min().item() >= 1
+    assert torch.equal(call.counts, want) and want.min().item() >= 1
 
 
 @pytest.mark.parametrize("seeded", [False, True])
