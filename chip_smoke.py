@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (and, where a
 host has several, on all of them).
 
-    python3 chip_smoke.py              # phases 1-10 and 12, 11 on 2+ cards
+    python3 chip_smoke.py              # phases 1-10, 12 and 13; 11 on 2+ cards
     python3 chip_smoke.py --multicard  # the build and phase 11 alone
 
 Drives ``raytrace_tpu_torch``'s ``create_image`` main path, its
@@ -118,8 +118,11 @@ fails (non-zero exit, no result line) if any phase fails:
    from Python (``eager``) and once through the graphs: every gate, each
    within 1e-12 of the 1-card call, the s/call and the ratio, the
    dispatch, the busy share, each entry's capture and kernel nodes, each
-   card's peak memory, first and last marks and the reduction's device
-   time; the
+   card's peak and reserved memory, first and last marks and the
+   reduction's device time; through the graphs, the bench's
+   ``graph_memory_check`` on the 1-card row and on every card of the mesh
+   row (what a card reserves beyond the pools of the graphs cached on it
+   at most max(256 MiB, 0.10 x the row's peak allocated)); the
    mesh stream at depth 2 within 1e-12 of the sharded call; the device
    time per kernel of each shipped shape on one card and on the cards;
    then as subprocesses the CLI's ``-multichip``, its group of one rank per
@@ -146,9 +149,19 @@ fails (non-zero exit, no result line) if any phase fails:
    ``cuda:0`` and, on two or more cards, on ``make_mesh()``, within 1e-12;
    then the bench's four
    rows in this run eager and through the graphs (both fixtures' goldens,
-   every gate): s/call, the dispatch, the device time and busy share, the
-   warm-up call and the capture, kernel nodes, pool and peak memory. B1,
-   B2 and B3 must have launched.
+   every gate, and through the graphs ``graph_memory_check`` on every
+   row, as in phase 11): s/call, the dispatch, the device time and busy
+   share, the warm-up call and the capture, kernel nodes, pool, peak and
+   reserved memory. B1, B2 and B3 must have launched;
+13. with the counts at 0 again (run before phase 11), the host surface:
+   a ``seed_small`` ``create_image`` through its graph (captured by a
+   call before) under ``profiler.scope("create_image-annotated",
+   annotate=True, device=...)`` inside ``torch.profiler`` (CPU and CUDA):
+   the range is in the trace once, the device events of B1, B2 and B3
+   from the replay lie inside its wall window, the scope's recorded time
+   is at least the device time the profiler summed for the call, and
+   ``get_time()`` rises across the call; one line with the numbers,
+   printed with the port's ``printp``. B1, B2 and B3 must have launched.
 
 Prints one JSON line of per-kernel results, every card's line, and as its
 last line ``{"ok": true, "device": {...}}``; ``--multicard`` prints no
@@ -1571,6 +1584,10 @@ def prepared_numbers():
                         twins=(), out_dir=OUT_DIR, eager=eager)
         if not res["gates_ok"]:
             fail(f"bench rows eager {eager}: gates {res['gates']}")
+        held = {n: res[f"{n}_graph_memory_check"] for n in PREPARED_REPS}
+        if not eager and not (res["graph_memory_check"] is True
+                              and all(v is True for v in held.values())):
+            fail(f"bench rows through graphs: graph_memory_check {held}")
         out["eager" if eager else "graph"] = res
     for name in PREPARED_REPS:
         for how, res in out.items():
@@ -1590,7 +1607,10 @@ def prepared_numbers():
                   f"{graph.get('nodes')}; pool "
                   f"{graph.get('pool_bytes', 0) / 2 ** 30:.3f} GiB; peak "
                   f"{mem['max_memory_allocated'] / 2 ** 30:.3f} GiB, reserved "
-                  f"{mem['memory_reserved'] / 2 ** 30:.3f} GiB", flush=True)
+                  f"{mem['memory_reserved'] / 2 ** 30:.3f} GiB, beyond the "
+                  f"graphs' pools {res[p + 'reserved_over_pools_gib']:.3f} "
+                  f"GiB (graph_memory_check "
+                  f"{res[p + 'graph_memory_check']})", flush=True)
     return {how: {k: v for k, v in res.items()
                   if k.startswith(tuple(PREPARED_REPS))
                   or k.startswith("mem_after_")}
@@ -1606,6 +1626,83 @@ def phase_prepared():
     rec["seconds"] = time.perf_counter() - t0
     print(f"prepared path: {rec['seconds']:.1f} s", flush=True)
     record["prepared"] = rec
+
+
+#: phase 13's scope, and the kernels whose device events must lie in it
+HOST_SCOPE = "create_image-annotated"
+HOST_KERNELS = (("trace", "trace_kernel"),
+                ("bin_deposit", "bin_deposit_kernel"),
+                ("amplify", "amplify_seeded_kernel"))
+
+
+def phase_host():
+    """Phase 13, the host surface on the card: a ``seed_small`` call
+    through its graph under ``profiler.scope(annotate=True)`` inside
+    ``torch.profiler``; the range in the trace, the replay's B1, B2 and B3
+    inside its wall window (as many as the graph captured), the scope's
+    time at least the call's device time, ``get_time`` monotonic across
+    the call."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.utils.pio import printp
+    from raytrace_tpu_torch.utils.timer import get_time, profiler
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    source, _scale = row_source("seed_small")
+    ray_tracer.clear_pipeline_cache()
+    create_image(source(), "cuda", device=dev)  # captures the graph
+    p = source()
+    before = profiler.totals[HOST_SCOPE], profiler.counts[HOST_SCOPE]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(dev)
+    t0 = get_time()
+    with torch.profiler.profile(activities=acts) as prof:
+        with profiler.scope(HOST_SCOPE, annotate=True, device=dev):
+            image, i_ang = create_image(p, "cuda", device=dev)
+    t1 = get_time()
+    check_output(image, i_ang, p)
+    pipe = ray_tracer.prepare_pipeline(p, "cuda", dev).pipeline
+    if len(pipe.graphs) != 1:
+        fail(f"host surface: {len(pipe.graphs)} graphs of seed_small")
+    # the range is a host event; the profiler mirrors it on the device
+    # timeline as an annotation of the same name, which is no device work
+    gpu = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = [e for e in events
+              if e.name == HOST_SCOPE and e.device_type != gpu]
+    mirrored = sum(e.name == HOST_SCOPE and e.device_type == gpu
+                   for e in events)
+    cuda = [e for e in events if e.device_type == gpu
+            and e.name != HOST_SCOPE]
+    if len(ranges) != 1:
+        fail(f"host surface: {len(ranges)} host events named {HOST_SCOPE}")
+    win = ranges[0].time_range
+    kernels = {n: [e for e in cuda if tag in e.name]
+               for n, tag in HOST_KERNELS}
+    outside = {n: sum(not (win.start <= e.time_range.start
+                           and e.time_range.end <= win.end) for e in ks)
+               for n, ks in kernels.items()}
+    device_s = sum(e.time_range.elapsed_us() for e in cuda) / 1e6
+    scope_s = profiler.totals[HOST_SCOPE] - before[0]
+    counts = {n: len(ks) for n, ks in kernels.items()}
+    want = {n: pipe.cfg["launches"][n] for n in counts}
+    rec = dict(window_ms=(win.end - win.start) / 1e3, scope_s=scope_s,
+               device_s=device_s, device_events=len(cuda),
+               mirrored=mirrored, get_time=[t0, t1], kernels=counts,
+               outside=outside,
+               scope_count=profiler.counts[HOST_SCOPE] - before[1])
+    printp("host surface: seed_small through its graph under "
+           "profiler.scope(%r, annotate=True): range %.3f ms in the trace "
+           "(%d on the device timeline), kernels in it %s (outside %s) "
+           "among %d device events, scope %.6f s >= device %.6f s; "
+           "get_time %.6f -> %.6f s\n", HOST_SCOPE, rec["window_ms"],
+           mirrored, counts, outside, len(cuda), scope_s, device_s, t0, t1)
+    if (counts != want or min(counts.values()) <= 0 or any(outside.values())
+            or rec["scope_count"] != 1 or not scope_s >= device_s > 0
+            or not 0 <= t0 < t1 or t1 - t0 < scope_s):
+        fail(f"host surface: {rec}")
+    record["host"] = rec
 
 
 #: phase 11's timed calls of each bench row, on one card and on the mesh
@@ -1781,6 +1878,13 @@ def multicard_sharded(cards):
     return out
 
 
+def _gib(x):
+    """GiB to three places, also per card; None stays None."""
+    if isinstance(x, dict):
+        return {d: _gib(v) for d, v in x.items()}
+    return None if x is None else round(x, 3)
+
+
 def multicard_rows(cards):
     """The bench's rows on one card and on ``cards`` in one run
     (``tools/bench.run`` with ``mesh``), once with the calls run from
@@ -1810,6 +1914,12 @@ def multicard_rows(cards):
                      if per_card[k].get(str(d), 0) <= 0]
             if short:
                 fail(f"{p[:-1]} {how}: no launches of {short}: {per_card}")
+            held = (res[f"{name}_graph_memory_check"],
+                    res[p + "graph_memory_check"])
+            if not eager and held != (True, True):
+                fail(f"{p[:-1]}: graph_memory_check (1 card, mesh) {held}: "
+                     f"beyond the graphs' pools "
+                     f"{res[p + 'reserved_over_pools_gib']} GiB")
             calls = res[p + "calls"]
             best = min(calls, key=lambda c: c["total_s"])
             mem = res[f"mem_after_{name}_mesh{D}"]
@@ -1830,6 +1940,11 @@ def multicard_rows(cards):
                           for d, m in mem.items()},
                 single_peak_gib=res[f"mem_after_{name}"][
                     "max_memory_allocated"] / 2 ** 30,
+                reserved_gib=res[p + "reserved_gib"],
+                over_pools_gib=res[p + "reserved_over_pools_gib"],
+                single_reserved_gib=res[f"{name}_reserved_gib"],
+                single_over_pools_gib=res[
+                    f"{name}_reserved_over_pools_gib"],
                 reduce_ms=[c["reduce_s"] * 1e3 for c in calls],
                 best_call=best)
             r = rows[name]
@@ -1846,7 +1961,11 @@ def multicard_rows(cards):
                   f"reduction {best['reduce_s'] * 1e3:.4f} ms on the device; "
                   f"peak GiB per card "
                   f"{ {d: round(v, 3) for d, v in r['peak_gib'].items()} } "
-                  f"(1 card {r['single_peak_gib']:.3f}); launches per call "
+                  f"(1 card {r['single_peak_gib']:.3f}); reserved GiB per "
+                  f"card {_gib(r['reserved_gib'])} (1 card "
+                  f"{_gib(r['single_reserved_gib'])}), beyond the graphs' "
+                  f"pools {_gib(r['over_pools_gib'])} (1 card "
+                  f"{_gib(r['single_over_pools_gib'])}); launches per call "
                   f"per card {per_card}", flush=True)
             for e in best["cards"]:
                 print(f"  {name} {how} {e['device']}: first mark "
@@ -2109,6 +2228,8 @@ def main(argv) -> int:
                                             phase_medium, path_kernels)
     _, record["prepared_launches"] = run_path("prepared path",
                                               phase_prepared, path_kernels)
+    _, record["host_launches"] = run_path("host surface", phase_host,
+                                          path_kernels)
     if torch.cuda.device_count() >= 2:
         _, record["multicard_launches"] = run_path(
             "multi-card path", phase_multicard, path_kernels)

@@ -240,16 +240,22 @@ def prepare_pipeline(problem: CreateImageProblem, compute_method: str = "auto",
     return _prepare(problem, name, dev, chunk_size, c, reorder, eager=eager)
 
 
+def _card(dev) -> torch.device:
+    """``dev`` with its index: ``cuda`` alone is the current card (a graph
+    is bound to the card it was captured on)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
              readback=True, eager=False, packed=None) -> PreparedCall:
     """:func:`prepare_pipeline` for a resolved method and device; without
     ``readback`` the call's output stays on the device (a mesh entry's
     partial); ``packed``: the tables of :func:`_pack`, when packed apart."""
     method, src, scale, timer_name = _validate(problem)
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        # a graph is bound to the card it was captured on
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _card(dev)
     beam = problem.euv_beam
     dims = (src.nx, src.ny, src.na, src.nb)
     Nt = dims[0] * dims[1] * dims[2] * dims[3]
@@ -773,10 +779,13 @@ class _Graph:
     Built on the first call that finds every graph of its config in
     flight: one eager warm-up call of the config on the same buffers
     (builds and loads the kernels, caches B1's occupancy query, so that no
-    such call happens during the capture), then the capture of
-    :func:`_dispatch_steps` and the readback on the caller's current
-    stream (or a side stream), without waiting for any of it; the capture
-    and replay raise on failure."""
+    such call happens during the capture), whose cached blocks then go
+    back to the card, then the capture of :func:`_dispatch_steps` and the
+    readback on the caller's current stream (or a side stream), without
+    waiting for any of it; the capture and replay raise on failure.
+    ``pool_bytes``: the growth of the card's reservation over the capture,
+    the graph's private pool (the warm-up's blocks released before it, so
+    that they are not cached beside the pool)."""
 
     def __init__(self, cfg: dict, buf: torch.Tensor):
         dev = cfg["device"]
@@ -795,6 +804,9 @@ class _Graph:
             _drain(_dispatch_steps(cfg, self.staging, self.prev))
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
+            # the warm-up's outputs are dropped; its blocks, idle on every
+            # stream of the card after the sync, go back to the card
+            torch.cuda.empty_cache()
             stream = torch.cuda.current_stream(dev)
             if stream == torch.cuda.default_stream(dev):
                 stream = _CAPTURE_STREAMS.setdefault(dev,
@@ -903,7 +915,8 @@ _PIPELINE_CACHE: OrderedDict = OrderedDict()
 MAX_PIPELINES = 64
 #: the share of a card's memory that the cached graphs' pools may hold
 #: (20 GiB of an 80 GB H100); past it, the graphs of the least recently
-#: used configs that are not in flight are dropped
+#: used configs that are not in flight are dropped. A pool is all that the
+#: card reserves for its graph, so this bounds the cache's reservation
 GRAPH_POOL_SHARE = 0.25
 
 
@@ -921,12 +934,27 @@ def _pipeline(cfg: dict):
     return pipe
 
 
+def _graph_pipelines(dev) -> list:
+    """The cached graph pipelines of card ``dev``, least recently used
+    first."""
+    dev = _card(dev)
+    return [p for p in _PIPELINE_CACHE.values()
+            if isinstance(p, _GraphPipeline) and p.cfg["device"] == dev]
+
+
+def graph_pool_bytes(dev) -> int:
+    """The bytes the pools of the graphs cached on card ``dev`` hold: what
+    the card reserves for the cache (``memory_reserved`` less this is what
+    the rest of the process reserves there)."""
+    return sum(g.pool_bytes for p in _graph_pipelines(dev) for g in p.graphs)
+
+
 def _evict(dev, keep: _GraphPipeline) -> None:
     """Drop the graphs not in flight of the least recently used configs on
     ``dev`` (never ``keep``'s) until the graphs' pools there hold at most
-    :data:`GRAPH_POOL_SHARE` of the card's memory."""
-    pipes = [p for p in _PIPELINE_CACHE.values()
-             if isinstance(p, _GraphPipeline) and p.cfg["device"] == dev]
+    :data:`GRAPH_POOL_SHARE` of the card's memory, and return the dropped
+    pools to the card."""
+    pipes = _graph_pipelines(dev)
     held = sum(g.pool_bytes for p in pipes for g in p.graphs)
     limit = GRAPH_POOL_SHARE * torch.cuda.get_device_properties(dev) \
         .total_memory

@@ -74,7 +74,16 @@ code 1:
   of the synchronous call on the same unit;
 * ``scale_flat_check``: the ``scale64`` row's peak of allocated bytes at
   most 1.10 times the ``scale16`` row's (the chunked design's claim that
-  device memory does not grow with the ray count).
+  device memory does not grow with the ray count);
+* ``graph_memory_check``: after the timed calls of every synchronous row
+  (and of every mesh row, on each of its cards), the card's reserved bytes
+  less the pools of the graphs cached on it
+  (``ray_tracer.graph_pool_bytes``) at most max(256 MiB, 0.10 x the row's
+  peak of allocated bytes on that card): what the card reserves beyond the
+  graphs, which the cache's bound does not count. Each row records
+  ``<row>_reserved_gib``, ``<row>_reserved_over_pools_gib`` and
+  ``<row>_graph_memory_check`` (per card on a mesh row); None with
+  ``--eager`` and on the CPU, where no graph holds the call's memory.
 
 The full artifact goes to ``--out`` (by default ``bench_torch.json`` in
 the checkout's output directory) and to stdout as one line; the last stdout line is a compact
@@ -181,6 +190,8 @@ GOLDEN_REL = 1e-5      # two-sided relative L2: goldens and twins
 STREAM_REL = 1e-12     # stream yields against the synchronous call
 MESH_REL = 1e-12       # a sharded call against the 1-card call
 SCALE_FLAT = 1.10      # scale64's peak allocated bytes over scale16's
+GRAPH_MEMORY_FLOOR = 256 * 2 ** 20  # reserved beyond the graphs' pools:
+GRAPH_MEMORY_SHARE = 0.10           # at most the larger of these two
 TWIN_CHUNK = 1 << 20   # the kernels' chunk, for the twins on the card
 
 #: the last line's keys beside the headline
@@ -191,7 +202,8 @@ SUMMARY_KEYS = (
     "scale16_best_seconds_per_call", "scale16_stability_ok",
     "scale16_cross_backend_check", "scale16_stream_steady_best_s",
     "seed_scale4_best_seconds_per_call", "seed_scale4_cross_backend_check",
-    "scale64_best_seconds_per_call", "scale_flat_check", "scale_flat_ratio")
+    "scale64_best_seconds_per_call", "scale_flat_check", "scale_flat_ratio",
+    "graph_memory_check")
 
 SCHEMA = ("sync *_calls: disjoint wall intervals, total=prep+dispatch+wait; "
           "prep=prepare_pipeline (host), dispatch=pipeline(*operands) (a "
@@ -231,6 +243,29 @@ def _memory(dev) -> dict:
     return {"max_memory_allocated": torch.cuda.max_memory_allocated(dev),
             "memory_reserved": torch.cuda.memory_reserved(dev),
             "total": torch.cuda.mem_get_info(dev)[1]}
+
+
+def _graph_memory(ctx: _Ctx, dev, mem: dict) -> dict:
+    """The card's reserved GiB and the GiB it reserves beyond the pools of
+    the graphs cached on it, with ``graph_memory_check`` (None on the CPU
+    and for calls run from Python)."""
+    if dev.type != "cuda":
+        return {"reserved_gib": None, "reserved_over_pools_gib": None,
+                "graph_memory_check": None}
+    over = mem["memory_reserved"] - ray_tracer.graph_pool_bytes(dev)
+    limit = max(GRAPH_MEMORY_FLOOR,
+                GRAPH_MEMORY_SHARE * mem["max_memory_allocated"])
+    return {"reserved_gib": mem["memory_reserved"] / 2 ** 30,
+            "reserved_over_pools_gib": over / 2 ** 30,
+            "graph_memory_check": None if ctx.eager else over <= limit}
+
+
+def _all(checks) -> bool | None:
+    """False if a check failed, else None if one (or every one, or none at
+    all) was not evaluated, else True."""
+    if any(c is False for c in checks):
+        return False
+    return None if not checks or None in checks else True
 
 
 def _reset_peak(dev) -> None:
@@ -328,11 +363,14 @@ def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
     probs = perturbed_problems(source, n, salt=salt, scale=scale)
     before = _launch_counts()
     calls = [_timed_call(ctx, p) for p in probs]
+    mem = _memory(ctx.dev)
     row = _row_stats(prefix, [c["total_s"] for c in calls],
                      ray_count(pristine))
     row.update({f"{prefix}calls": calls, f"{prefix}warmup_s": warmup_s,
                 f"{prefix}launches_per_call": _per_call(before, n),
-                f"mem_after_{name}": _memory(ctx.dev)})
+                f"mem_after_{name}": mem})
+    row.update({prefix + k: v
+                for k, v in _graph_memory(ctx, ctx.dev, mem).items()})
     prep = ray_tracer.prepare_pipeline(pristine, ctx.method, ctx.dev,
                                        eager=ctx.eager)
     row[f"{prefix}graph"] = _graphs(prep.pipeline)
@@ -483,6 +521,8 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
     before, before_cards = _launch_counts(), _card_launches()
     calls = [_mesh_call(ctx, runner, p) for p in probs]
     after_cards = _card_launches()
+    mems = {d: _memory(d) for d in cards}
+    held = {str(d): _graph_memory(ctx, d, m) for d, m in mems.items()}
     row = _row_stats(prefix, [c["total_s"] for c in calls],
                      ray_count(pristine))
     best = row[f"{prefix}best_seconds_per_call"]
@@ -500,8 +540,12 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
         f"{prefix}rel_vs_single": rel,
         f"{prefix}single_check": rel <= MESH_REL,
         f"mem_after_{name}_mesh{len(mesh)}": (
-            {str(d): _memory(d) for d in cards} if cards
+            {str(d): m for d, m in mems.items()} if cards
             else _memory(mesh[0]))})
+    for k in ("reserved_gib", "reserved_over_pools_gib"):
+        row[prefix + k] = {d: h[k] for d, h in held.items()}
+    row[prefix + "graph_memory_check"] = _all(
+        [h["graph_memory_check"] for h in held.values()])
     prep = sharding.prepare_sharded(pristine, mesh, ctx.method,
                                     eager=ctx.eager)
     row[f"{prefix}graphs"] = [_graphs(pipe) for pipe in prep.pipeline]
@@ -616,7 +660,9 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
             _log(f"{name}: {res[f'{name}_n_rays']} rays, best "
                  f"{res[f'{name}_best_seconds_per_call']} s/call, twins "
                  f"{res[f'{name}_cross_backend_check']}, "
-                 f"{res[f'mem_after_{name}']}")
+                 f"{res[f'mem_after_{name}']}, reserved "
+                 f"{res[f'{name}_reserved_gib']} GiB, beyond the graphs' "
+                 f"pools {res[f'{name}_reserved_over_pools_gib']} GiB")
         elif name in _STREAMS and name in stream_rounds:
             parent, units, depth = _STREAMS[name]
             seeded, si, _ = _ROWS[parent]
@@ -648,7 +694,9 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
             p = f"{name}_mesh{mesh}_"
             _log(f"{p[:-1]}: best {res[p + 'best_seconds_per_call']} "
                  f"s/call, speedup {res[p + 'speedup']}, against 1 card "
-                 f"{res[p + 'rel_vs_single']}")
+                 f"{res[p + 'rel_vs_single']}, reserved "
+                 f"{res[p + 'reserved_gib']} GiB, beyond the graphs' pools "
+                 f"{res[p + 'reserved_over_pools_gib']} GiB")
 
     if "ase_small_best_seconds_per_call" in res:
         res.update({"metric": "ase_small_rays_per_sec",
@@ -664,9 +712,12 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
         ratio = mems[1] / mems[0]
         flat = ratio <= SCALE_FLAT
     res["scale_flat_ratio"], res["scale_flat_check"] = ratio, flat
+    res["graph_memory_check"] = _all([
+        v for k, v in res.items() if k.endswith("_graph_memory_check")])
 
     gates = {"golden_check": res["golden_check"],
-             "scale_flat_check": flat}
+             "scale_flat_check": flat,
+             "graph_memory_check": res["graph_memory_check"]}
     gates.update({k: v for k, v in res.items()
                   if k.endswith(("_cross_backend_check", "_sync_check"))})
     if mesh is not None:

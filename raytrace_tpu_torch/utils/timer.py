@@ -4,7 +4,9 @@ The reference instruments ``create_image`` / ``propagate_{ASE,seed}-<method>``
 with PROFILE_START/STOP macros (no-ops in the miniapp, src/ProfilerApp.h:1-13;
 regions at src/RayTraceImage.cpp:233,294-298,424,433). This registry keeps
 the same region names, records wall time per scope, and can emit a summary
-table.
+table. ``profiler.scope(name, annotate=True)`` also opens the region as a
+``torch.profiler.record_function`` (and, on a CUDA device, an NVTX range),
+so that it shows up in ``torch.profiler`` traces.
 
 Work on a CUDA device runs asynchronously, so a region stopped with a CUDA
 ``device`` first synchronises that device: the recorded time then covers the
@@ -15,10 +17,29 @@ from __future__ import annotations
 
 import time
 from collections import defaultdict
+from contextlib import ExitStack, contextmanager
 
 import torch
 
-__all__ = ["Profiler", "profiler"]
+__all__ = ["Profiler", "profiler", "get_time"]
+
+_START = time.perf_counter()
+
+
+def get_time() -> float:
+    """Monotonic seconds since the module was imported (getTime,
+    src/CreateImageHelpers.cpp:46-62)."""
+    return time.perf_counter() - _START
+
+
+def _annotation(name: str, device) -> ExitStack:
+    """``name`` as a ``torch.profiler`` region, and as an NVTX range when
+    ``device`` is a CUDA device."""
+    stack = ExitStack()
+    stack.enter_context(torch.profiler.record_function(name))
+    if device is not None and torch.device(device).type == "cuda":
+        stack.enter_context(torch.cuda.nvtx.range(name))
+    return stack
 
 
 class Profiler:
@@ -41,6 +62,20 @@ class Profiler:
                 torch.cuda.synchronize(device)
             self.totals[name] += time.perf_counter() - self._open.pop(name)
             self.counts[name] += 1
+
+    @contextmanager
+    def scope(self, name: str, annotate: bool = False, device=None):
+        """Context-manager scope, stopped with ``device`` (see
+        :meth:`stop`); with ``annotate``, also a ``torch.profiler`` region
+        (and an NVTX range on a CUDA ``device``). A body that raises leaves
+        the region open and unrecorded, as the JAX package's scope does."""
+        self.start(name)
+        if annotate:
+            with _annotation(name, device):
+                yield
+        else:
+            yield
+        self.stop(name, device)
 
     def reset(self) -> None:
         self.totals.clear()

@@ -75,9 +75,12 @@ def test_headline_and_gates(artifact):
     assert artifact["golden_check"] and artifact["gates_ok"]
     assert set(artifact["golden_checks"]) == {"golden_ase.dat",
                                               "golden_seed.dat"}
-    # the scale-flat gate needs device memory statistics: not evaluated
+    # the scale-flat and graph-memory gates need device memory
+    # statistics: not evaluated
     assert artifact["scale_flat_check"] is None
-    assert artifact["gates_not_evaluated"] == ["scale_flat_check"]
+    assert artifact["graph_memory_check"] is None
+    assert artifact["gates_not_evaluated"] == ["graph_memory_check",
+                                               "scale_flat_check"]
     for row in SYNC_ROWS:
         assert artifact["gates"][f"{row}_cross_backend_check"] is True
     for row in STREAM_ROWS:
@@ -158,6 +161,65 @@ def test_scale_flat_gate(monkeypatch, tmp_path, peaks, flat):
     assert res["scale_flat_ratio"] == pytest.approx(peaks[1] / peaks[0])
     assert res["scale_flat_check"] is flat and res["gates_ok"] is flat
     assert res["scale16_cross_backend_check"] is None
+
+
+@pytest.mark.parametrize("row", SYNC_ROWS)
+def test_graph_memory_keys(artifact, row):
+    """Every synchronous row records its reserved memory and the gate;
+    on the CPU none of them is evaluated."""
+    for k in ("reserved_gib", "reserved_over_pools_gib",
+              "graph_memory_check"):
+        assert artifact[f"{row}_{k}"] is None
+
+
+MIB = 2 ** 20
+
+
+@pytest.mark.parametrize("over, peak, eager, ok", [
+    (255 * MIB, 1024 * MIB, False, True),    # under the 256 MiB floor
+    (257 * MIB, 1024 * MIB, False, False),
+    (1000 * MIB, 10240 * MIB, False, True),  # under a tenth of the peak
+    (1100 * MIB, 10240 * MIB, False, False),
+    (5000 * MIB, 1024 * MIB, True, None),    # eager: no graph to count
+])
+def test_graph_memory_gate(monkeypatch, over, peak, eager, ok):
+    """The card's reserved bytes less the cached graphs' pools against
+    max(256 MiB, 0.10 x the row's peak of allocated bytes)."""
+    pools = 3000 * MIB
+    monkeypatch.setattr(bench.ray_tracer, "graph_pool_bytes",
+                        lambda dev: pools)
+    ctx = bench._Ctx(torch.device("cuda", 0), "cuda", "unused.dat", eager)
+    got = bench._graph_memory(ctx, torch.device("cuda", 0), {
+        "max_memory_allocated": peak, "memory_reserved": pools + over})
+    assert got["graph_memory_check"] is ok
+    assert got["reserved_gib"] == (pools + over) / 2 ** 30
+    assert got["reserved_over_pools_gib"] == over / 2 ** 30
+
+
+@pytest.mark.parametrize("mesh", [None, 2])
+def test_failed_graph_memory_gate_sets_gates_ok(monkeypatch, tmp_path,
+                                                mesh):
+    """A row over the graph-memory bound fails ``graph_memory_check`` and
+    the run; on a mesh row, a card over it."""
+    failing = {"reserved_gib": 2.0, "reserved_over_pools_gib": 1.0,
+               "graph_memory_check": False}
+    if mesh is None:
+        monkeypatch.setattr(bench, "_graph_memory",
+                            lambda ctx, dev, mem: failing)
+    else:
+        real = bench._mesh_row
+
+        def mesh_row(ctx, name, cards, *a):
+            row = real(ctx, name, cards, *a)
+            row[f"{name}_mesh2_graph_memory_check"] = False
+            return row
+        monkeypatch.setattr(bench, "_mesh_row", mesh_row)
+    res = bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                    reps={"ase_small": 1}, stream_rounds={}, twins=(),
+                    out_dir=str(tmp_path), mesh=mesh)
+    assert res["graph_memory_check"] is False
+    assert res["gates"]["graph_memory_check"] is False
+    assert res["gates_ok"] is False
 
 
 def test_a_row_that_raises_fails_the_run(monkeypatch, tmp_path):

@@ -483,3 +483,33 @@ def test_graph_on_a_card_not_current(two_cards, seeded):
         _close(create_image(synthetic_problem(seeded=seeded), "cuda",
                             device="cuda:1"), want)
         assert torch.cuda.current_device() == 0
+
+
+def test_graph_cache_reserves_its_pools(cuda):
+    """After a fixture's call the card reserves its graph's pool and
+    little else (the bench's ``graph_memory_check`` margin); a second
+    config's capture raises the reservation by its own pool, plus at most
+    one 2 MiB segment of the allocator's small pool (its B1 counters)."""
+    import os
+
+    from raytrace_tpu_torch import create_image, load_input
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.tools import bench
+
+    fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
+    ray_tracer.clear_pipeline_cache()
+    torch.cuda.synchronize(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reserved = []
+    for name in ("golden_seed.dat", "golden_ase.dat"):
+        p = load_input(os.path.join(fixtures, name))[0]
+        create_image(p, "cuda", device=cuda)
+        graphs = ray_tracer.prepare_pipeline(p, "cuda", cuda).pipeline.graphs
+        assert len(graphs) == 1 and graphs[0].pool_bytes > 0
+        reserved.append(torch.cuda.memory_reserved(cuda))
+        over = reserved[-1] - ray_tracer.graph_pool_bytes(cuda)
+        assert 0 <= over <= max(
+            bench.GRAPH_MEMORY_FLOOR,
+            bench.GRAPH_MEMORY_SHARE * torch.cuda.max_memory_allocated(cuda))
+    assert reserved[1] - reserved[0] <= graphs[0].pool_bytes + 2 * 2 ** 20
+    ray_tracer.clear_pipeline_cache()

@@ -242,7 +242,7 @@ def test_mathlib_case(case):
 
 def test_pout_streams(capsys):
     """The port's rank-0 stream prints what ``raytrace_tpu``'s ``printp``
-    prints (the port keeps ``pout`` alone of the pio streams)."""
+    prints (the other pio streams: ``tests/test_torch_pio.py``)."""
     pout.write("hello %d\n" % 42)
     got = capsys.readouterr().out
     jax_pio.printp("hello %d\n", 42)

@@ -13,7 +13,8 @@ are tested on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
   ``K``, ``method``, ``use_emis`` and ``dims``;
 * one cached pipeline per config over units of one shape with different
   tables, each unit bitwise its own ``create_image``; the cache's key
-  follows the config, its size stays bounded;
+  follows the config, its size stays bounded; ``_evict`` holds the
+  graphs' pools on a card to ``GRAPH_POOL_SHARE`` (on stand-in graphs);
 * ``cfg["reorder"]`` says what ran; the failure path through a prepared
   call is ``create_image``'s; the stream prepares each unit once, as the
   JAX stream does (tests/test_create_image.py:712-730);
@@ -132,6 +133,71 @@ def test_cache_stays_bounded(monkeypatch):
     assert len(ray_tracer._PIPELINE_CACHE) == 3
     ray_tracer.clear_pipeline_cache()
     assert not ray_tracer._PIPELINE_CACHE
+
+
+def _stand_in_cache(monkeypatch, pools):
+    """The cache filled with graph pipelines of stand-in graphs:
+    ``pools`` maps a key to (device index, [(pool bytes, in flight)]),
+    least recently used first. Each card holds 1,000 bytes; every
+    ``empty_cache`` is counted."""
+    from types import SimpleNamespace
+
+    cache = ray_tracer._PIPELINE_CACHE.__class__()
+    for key, (index, graphs) in pools.items():
+        pipe = ray_tracer._GraphPipeline({"device": torch.device("cuda",
+                                                                 index)})
+        pipe.graphs = [SimpleNamespace(pool_bytes=b, in_flight=f)
+                       for b, f in graphs]
+        cache[key] = pipe
+    monkeypatch.setattr(ray_tracer, "_PIPELINE_CACHE", cache)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(total_memory=1000))
+    emptied = []
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: emptied.append(True))
+    return cache, emptied
+
+
+@pytest.mark.parametrize("case", ["under", "lru", "in_flight", "keep"])
+def test_evict_counts_graph_pools(monkeypatch, case):
+    """``_evict`` on stand-in graphs: the held total is the sum of the
+    card's graphs' pools (another card's do not count), the least recently
+    used configs' idle graphs go first until it is at most a quarter of
+    the card, graphs in flight stay, ``keep`` is never dropped, and the
+    cache is returned to the card only when something was dropped."""
+    pools = {
+        "under": {"a": (0, [(100, False)]), "b": (0, [(150, False)]),
+                  "other": (1, [(900, False)])},
+        "lru": {"a": (0, [(100, False)]), "b": (0, [(100, False)]),
+                "c": (0, [(100, False)])},
+        "in_flight": {"a": (0, [(200, True), (100, False)]),
+                      "b": (0, [(50, False)])},
+        "keep": {"a": (0, [(400, False)]), "b": (0, [(100, False)])},
+    }[case]
+    cache, emptied = _stand_in_cache(monkeypatch, pools)
+    dev = torch.device("cuda", 0)
+    keep = cache["a" if case == "keep" else list(pools)[-1]]
+    before = ray_tracer.graph_pool_bytes(dev)
+    assert before == sum(b for i, gs in pools.values() if i == 0
+                         for b, _ in gs)
+    ray_tracer._evict(dev, keep)
+    left = {k: [g.pool_bytes for g in p.graphs] for k, p in cache.items()}
+    held = ray_tracer.graph_pool_bytes(dev)
+    if case == "under":
+        assert left == {"a": [100], "b": [150], "other": [900]}
+        assert emptied == []
+        assert ray_tracer.graph_pool_bytes("cuda:1") == 900
+    elif case == "lru":
+        assert left == {"a": [], "b": [100], "c": [100]}
+        assert held == 200 and emptied == [True]
+    elif case == "in_flight":
+        assert left == {"a": [200], "b": [50]}
+        assert [g.in_flight for g in cache["a"].graphs] == [True]
+        assert held == 250 and emptied == [True]
+    else:  # over the bound with ``keep`` alone: it stays all the same
+        assert left == {"a": [400], "b": []}
+        assert held == 400 and emptied == [True]
+    assert keep.graphs
 
 
 def test_launches_follow_the_config():
