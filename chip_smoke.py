@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (and, where a
 host has several, on all of them).
 
-    python3 chip_smoke.py              # phases 1-10, 12 and 13; 11 on 2+ cards
+    python3 chip_smoke.py              # phases 1-10, 12-14; 11 on 2+ cards
     python3 chip_smoke.py --multicard  # the build and phase 11 alone
 
 Drives ``raytrace_tpu_torch``'s ``create_image`` main path, its
@@ -34,7 +34,14 @@ fails (non-zero exit, no result line) if any phase fails:
    (bins bitwise equal to get_index's, image and I_ang within 1e-12
    relative of the twin), timed in turns with ``index_add_`` of the image
    alone (its ``library_ms``), with the mean run of equal image bins and
-   the atomics it issues; probe P1 at K 64 (bitwise);
+   the atomics it issues; the f32 instantiations (the f32 spectrum,
+   ``raytrace_tpu``'s default): B3-f32 on the seeded chunk (the pair
+   ``(hi, lo)``, the spectrum and the flags bitwise equal to the twin's)
+   and B2-f32 at the real inputs of both shapes (B3-f32's spectra, the
+   f32 emissivity amplify's), bins bitwise, image and I_ang within 1e-12,
+   each timed with its twin and its bound, B2-f32 in turns with
+   ``index_add_`` of the f32 image alone, and the ASE call's emissivity
+   amplify in f64 and in f32; probe P1 at K 64 (bitwise);
 4. with every launch count at 0: ``create_image`` on both golden fixtures
    (``check_ans`` at 5e-6 and a two-sided relative L2 below 1e-5 against
    the embedded golden), then the two shipped-shape synthetics (ASE
@@ -161,7 +168,21 @@ fails (non-zero exit, no result line) if any phase fails:
    from the replay lie inside its wall window, the scope's recorded time
    is at least the device time the profiler summed for the call, and
    ``get_time()`` rises across the call; one line with the numbers,
-   printed with the port's ``printp``. B1, B2 and B3 must have launched.
+   printed with the port's ``printp``. B1, B2 and B3 must have launched;
+14. with the counts at 0 again (run before phase 11), the f32 path
+   (``spectrum_dtype=float32``): both fixtures in f32 against their
+   goldens as in phase 4; the bench's ``ase_small``, ``seed_small``,
+   ``seed_scale4`` and ``scale16`` rows in f32 through their graphs (a
+   warm-up that captures, then timed calls split into prep, dispatch and
+   wait, in turns with the f64 call of the same problem, which does not
+   count), each within 1e-5 relative L2 of the f64 call, the device time
+   per kernel of each under the profiler, and on every row what the card
+   reserves beyond the cached graphs' pools (the f32 and f64 graphs are
+   two pools) at most max(256 MiB, 0.10 x the row's peak); an f32 stream
+   at depth 2, an f32 mesh stream and f32 sharded calls on two entries of
+   the card over 4 units with tables all different of each shipped shape,
+   each within 1e-12 of the synchronous f32 call. B1, B2-f32 and B3-f32
+   (the f32 instantiations' own counts) must have launched.
 
 Prints one JSON line of per-kernel results, every card's line, and as its
 last line ``{"ok": true, "device": {...}}``; ``--multicard`` prints no
@@ -366,6 +387,7 @@ def phase_kernels(results):
     results["trace"]["max_abs_err"] = worst
     phase_amplify(results, shapes["seed_chunk"])
     phase_deposit(results, shapes)
+    phase_f32_kernels(results, shapes)
     phase_probe_kernel(results)
 
 
@@ -672,6 +694,143 @@ def phase_deposit(results, shapes):
                                   max_rel_err=dep_worst[1])
 
 
+#: B3's f32 operations, counted from csrc/amplify.cu: per element and
+#: (segment, sub-length) term (the split product 13, the two-sum 6, the
+#: low part 2) and per element (the exp 31, the seed product and the
+#: flags 6), beside one f64 product per element
+B3_F32_OPS = dict(term=21, element=37)
+
+
+def phase_f32_kernels(results, shapes):
+    """The f32 instantiations against their twins on the card at the main
+    path's inputs, each timed beside its twin with its bound: B3-f32 on the
+    seeded chunk traced by B1, with the chunk's seed factors (the pair
+    ``(hi, lo)``, the spectrum and the flags bitwise); B2-f32 at the real
+    inputs of both shapes (the seeded chunk's B3-f32 spectra; the ASE
+    call's f32 emissivity amplify), bins bitwise, image and I_ang within
+    1e-12, timed in turns with ``index_add_`` of the f32 image alone into
+    an f32 buffer; and the ASE call's emissivity amplify in f32 and f64."""
+    from raytrace_tpu_torch.models.problem import prepare_beam
+    from raytrace_tpu_torch.models.ray_tracer import _validate
+    from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
+                                        deposit_kernel, spectrum)
+    from raytrace_tpu_torch.testing import seed_factors
+
+    f32 = torch.float32
+    cell = shapes["seed_chunk"]
+    p, res = cell["p"], cell["res"]
+    B = res.ivl.shape[0]
+    f, fv = seed_factors(p, B, DEV)
+    gv = cell["gain"].gv[1:]
+    K, T = fv.shape[0], res.ivl.shape[1] * res.ivl.shape[2]
+    args = (f, fv, res.escaped, res.ivl, res.gvl, gv)
+    got, flags = amplify_kernel.amplify_gain(*args, dtype=f32)
+    _, _, pair = amplify_kernel._launch(
+        cuda_lib.load_library(), *args,
+        torch.cuda.current_stream().cuda_stream, log_gain=True, dtype=f32)
+    want, want_flags = amplify_kernel.amplify_gain_plain(*args, dtype=f32)
+    hi, lo = amplify_kernel.log_gain2_plain(*args[3:])
+    torch.cuda.synchronize()
+    same = dict(hi=torch.equal(pair[0], hi), lo=torch.equal(pair[1], lo),
+                spectrum=torch.equal(got.view(torch.int32),
+                                     want.view(torch.int32)),
+                flags=torch.equal(flags, want_flags))
+    if not all(same.values()):
+        ulps = (got.view(torch.int32).long()
+                - want.view(torch.int32).long()).abs().max().item()
+        fail(f"amplify f32: bitwise {same}, spectrum max {ulps} ulp")
+    ms = cuda_ms(lambda: amplify_kernel.amplify_gain(*args, dtype=f32), 20)
+    plain_ms = cuda_ms(lambda: amplify_kernel.amplify_gain_plain(
+        *args, dtype=f32), 3)
+    nbytes = (B * K * 4 + B * T * 8 + B * (8 + 1 + 1) + K * 8
+              + gv.numel() * 4)
+    b_ms, b_by = bound(nbytes, f32_ops=B * K * (B3_F32_OPS["term"] * T
+                                                + B3_F32_OPS["element"]),
+                       f64_ops=B * K)
+    print(f"amplify f32 seeded chunk B={B} K={K} T={T}: pair, spectrum and "
+          f"flags bitwise equal to the twin's (log-gains {hi.min().item():.3f}"
+          f" to {hi.max().item():.3f}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by {b_by}, "
+          f"{b_ms / ms:.3f} of it reached", flush=True)
+    record["amplify_f32_chunk"] = dict(B=B, K=K, bitwise=same, ms=ms,
+                                       plain_ms=plain_ms, bytes=nbytes,
+                                       bound_ms=b_ms, bound_by=b_by)
+    results["amplify_f32"] = dict(max_abs_err=(got - want).abs().max().item(),
+                                  ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None)
+
+    worst = (0.0, 0.0)
+    for name in ("seed_chunk", "ase_call"):
+        c = shapes[name]
+        p, res, rays, method = (c[k] for k in ("p", "res", "rays", "method"))
+        beam = prepare_beam(p.euv_beam, DEV)
+        if method == 1:
+            K = p.euv_beam.nv
+            z32 = torch.zeros((res.ivl.shape[0], K), dtype=f32, device=DEV)
+            z64 = z32.double()
+            gv_a = c["gain"].gv[1:]
+            Iv = spectrum.amplify(res, z32, gv_a, p.N, dtype=f32)
+            flags = amplify_kernel.iv_flags(Iv)
+            emis = in_turns({
+                "f64": lambda: spectrum.amplify(res, z64, gv_a, p.N),
+                "f32": lambda: spectrum.amplify(res, z32, gv_a, p.N,
+                                                dtype=f32)}, 2, rounds=1)
+            record["emissivity_amplify_ase_call"] = emis
+            print(f"emissivity amplify, whole ASE call ({res.ivl.shape[0]} "
+                  f"rays, K {K}, plain PyTorch): f64 {emis['f64']} ms, f32 "
+                  f"{emis['f32']} ms", flush=True)
+        else:
+            Iv, flags = got, want_flags
+        scale = _validate(p)[2]
+        coords = binning.source_coords(res, rays, method)
+        ok = ~res.perp & (flags == 0)
+        B, K = Iv.shape
+        C = beam.x.shape[0] * beam.y.shape[0]
+        A = beam.a.shape[0] * beam.b.shape[0]
+        bins, e = deposit_check(f"f32 real {name}", (Iv, coords, ok, scale),
+                                beam, method, C, A)
+        worst = tuple(map(max, worst, e))
+        f64 = dict(dtype=torch.float64, device=DEV)
+        image, i_ang = torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64)
+        lib_out = torch.zeros((C + 1, K), dtype=f32, device=DEV)
+        lib_bins = torch.where(bins[:, 0] >= 0, bins[:, 0], C).contiguous()
+        contrib = (Iv * torch.full((), scale, dtype=f32,
+                                   device=DEV)).contiguous()
+        dep = (Iv, coords, ok, beam, method, scale, image, i_ang)
+        t = in_turns({
+            "kernel": lambda: deposit_kernel.bin_deposit(*dep),
+            "library": lambda: lib_out.index_add_(0, lib_bins, contrib)}, 20)
+        plain_ms = cuda_ms(lambda: deposit_kernel.bin_deposit_plain(*dep),
+                           10)
+        n_img = int((bins[:, 0] >= 0).sum())
+        n_ang = int((bins[:, 1] >= 0).sum())
+        n_read = int(((bins[:, 0] >= 0) | (bins[:, 1] >= 0)).sum())
+        grids = sum(g.numel() * 8 for g in (beam.x, beam.y, beam.a, beam.b,
+                                            beam.dv))
+        nbytes = (n_read * K * 4 + B * 16 + B + 2 * (C * K + A) * 8
+                  + grids)
+        b_ms, b_by = bound(nbytes, f32_ops=K * (n_img + n_ang),
+                           f64_ops=K * (n_img + n_ang))
+        ms, lib_ms = mean(t["kernel"]), mean(t["library"])
+        print(f"deposit f32 real inputs {name} B={B} K={K} C={C}: bins "
+              f"bitwise, max rel {e[1]:.2e} against the twin; image rays "
+              f"{n_img}, I_ang rays {n_ang}; B2-f32 {t['kernel']} ms, "
+              f"index_add_ of the f32 image alone {t['library']} ms, plain "
+              f"twin {plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms "
+              f"by {b_by}, {b_ms / ms:.3f} of it reached", flush=True)
+        record[f"deposit_f32_{name}"] = dict(
+            B=B, K=K, C=C, image_rays=n_img, iang_rays=n_ang,
+            ms_readings=t["kernel"], library_ms_readings=t["library"], ms=ms,
+            library_ms=lib_ms, plain_ms=plain_ms, bytes=nbytes,
+            bound_ms=b_ms, bound_by=b_by)
+        if name == "seed_chunk":
+            results["bin_deposit_f32"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+    results["bin_deposit_f32"].update(max_abs_err=worst[0],
+                                      max_rel_err=worst[1])
+
+
 def phase_probe_kernel(results):
     """P1 against its twin at K = 64, both timed there."""
     from raytrace_tpu_torch.tools import gather_probe
@@ -745,7 +904,7 @@ def phase_main_path():
                     for n, w in WRAPPERS.items()}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         pool_gib = sum(g.pool_bytes for g in ray_tracer.prepare_pipeline(
-            p, "cuda", "cuda").pipeline.graphs) / 2 ** 30
+            p, "cuda", device="cuda").pipeline.graphs) / 2 ** 30
         check_output(image, i_ang, p)
         best = min(times)
         print(f"{name} shipped shape ({rays} rays): warmup and capture "
@@ -928,6 +1087,15 @@ def production_loops(nprocs=2, extra=()):
     return esums, outs
 
 
+#: the kernels' names in a profile (B2's by its spectrum type: the f64
+#: instantiation's name is ``bin_deposit_kernel<double, V>``)
+PROFILE_TAGS = (("trace", "trace_kernel"),
+                ("bin_deposit", "bin_deposit_kernel"),
+                ("amplify", "amplify_seeded_kernel"),
+                ("bin_deposit_f32", "bin_deposit_kernel<float"),
+                ("amplify_f32", "amplify_seeded_f32_kernel"))
+
+
 def profile_calls(fn, n=3):
     """``(device ms, kernel launches, {kernel: device ms})`` per call of
     ``fn`` over ``n`` calls under torch.profiler, after one call outside it
@@ -942,9 +1110,7 @@ def profile_calls(fn, n=3):
     k = [e for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA]
     per = {name: sum(e.self_device_time_total for e in k if tag in e.key)
-           / n / 1e3 for name, tag in (("trace", "trace_kernel"),
-                                       ("bin_deposit", "bin_deposit_kernel"),
-                                       ("amplify", "amplify_seeded_kernel"))}
+           / n / 1e3 for name, tag in PROFILE_TAGS}
     return (sum(e.self_device_time_total for e in k) / n / 1e3,
             sum(e.count for e in k) / n, per)
 
@@ -1362,7 +1528,8 @@ def eager_call(p, device=DEV):
     from raytrace_tpu_torch.models import ray_tracer
 
     def call():
-        prep = ray_tracer.prepare_pipeline(p, "cuda", device, eager=True)
+        prep = ray_tracer.prepare_pipeline(p, "cuda", device=device,
+                                           eager=True)
         return ray_tracer._finalize_call(
             p, prep, prep.pipeline(*prep.operands),
             os.path.join(OUT_DIR, "eager_failed_rays.dat"))
@@ -1404,7 +1571,8 @@ def prepared_replays():
         for u, (image, i_ang) in zip(units, got):
             check_output(image, i_ang, u)
         rel = worst_rel(got, want)
-        pipe = ray_tracer.prepare_pipeline(units[0], "cuda", DEV).pipeline
+        pipe = ray_tracer.prepare_pipeline(units[0], "cuda",
+                                           device=DEV).pipeline
         if (rel > PREPARED_REL or len(pipe.graphs) != 1
                 or pipe.graphs[0].in_flight):
             fail(f"{name}: graph replays rel L2 {rel} against eager, "
@@ -1427,7 +1595,7 @@ def prepared_goldens():
         ray_tracer.clear_pipeline_cache()
         p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
         image, i_ang = create_image(p, "cuda", device=DEV)
-        pipe = ray_tracer.prepare_pipeline(p, "cuda", DEV).pipeline
+        pipe = ray_tracer.prepare_pipeline(p, "cuda", device=DEV).pipeline
         r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
         if (not check_ans(image0, i_ang0, image, i_ang) or r_img >= 1e-5
                 or r_ang >= 1e-5 or len(pipe.graphs) != 1):
@@ -1465,7 +1633,7 @@ def prepared_streams():
                 dt = (time.perf_counter() - t0) / len(units)
                 rel = worst_rel(got, want)
                 pipe = ray_tracer.prepare_pipeline(
-                    units[0], "cuda", DEV, reorder=reorder).pipeline
+                    units[0], "cuda", reorder=reorder, device=DEV).pipeline
                 if (len(got) != 6 or rel > PREPARED_REL
                         or len(pipe.graphs) != depth
                         or any(g.in_flight for g in pipe.graphs)):
@@ -1504,7 +1672,7 @@ def prepared_failure():
                 create_image(p, "cuda", device=DEV,
                              failed_ray_path=dumps[how])
             else:
-                prep = ray_tracer.prepare_pipeline(p, "cuda", DEV,
+                prep = ray_tracer.prepare_pipeline(p, "cuda", device=DEV,
                                                    eager=True)
                 ray_tracer._finalize_call(p, prep,
                                           prep.pipeline(*prep.operands),
@@ -1517,7 +1685,7 @@ def prepared_failure():
     want = eager_call(synthetic_problem())
     got = create_image(synthetic_problem(), "cuda", device=DEV)
     pipe = ray_tracer.prepare_pipeline(synthetic_problem(), "cuda",
-                                       DEV).pipeline
+                                       device=DEV).pipeline
     rel = worst_rel([got], [want])
     if not (len(rays["graph"]) > 0
             and np.array_equal(rays["graph"], rays["eager"])
@@ -1662,7 +1830,7 @@ def phase_host():
             image, i_ang = create_image(p, "cuda", device=dev)
     t1 = get_time()
     check_output(image, i_ang, p)
-    pipe = ray_tracer.prepare_pipeline(p, "cuda", dev).pipeline
+    pipe = ray_tracer.prepare_pipeline(p, "cuda", device=dev).pipeline
     if len(pipe.graphs) != 1:
         fail(f"host surface: {len(pipe.graphs)} graphs of seed_small")
     # the range is a host event; the profiler mirrors it on the device
@@ -1703,6 +1871,166 @@ def phase_host():
             or not 0 <= t0 < t1 or t1 - t0 < scope_s):
         fail(f"host surface: {rec}")
     record["host"] = rec
+
+
+#: phase 14's rows: the bench's source, ``-scale=`` and timed calls
+F32_ROWS = {"ase_small": 3, "seed_small": 3, "seed_scale4": 3, "scale16": 2}
+#: the f32 path's kernels: B1 and the f32 instantiations of B2 and B3
+F32_KERNELS = ("trace", "bin_deposit_f32", "amplify_f32")
+#: an f32 call against its f64 call (tests/test_golden.py's bound)
+F32_REL = 1e-5
+
+
+def f32_kernels_of(p):
+    """The kernels an f32 call of ``p`` must launch: B1 and B2-f32, and
+    B3-f32 unless the emissivity amplify (ASE) takes its place."""
+    return tuple(n for n in F32_KERNELS
+                 if n != "amplify_f32" or "amplify" in path_kernels_of(p))
+
+
+def timed_split(p, **kw):
+    """One synchronous call through the call path's stages: ``(result,
+    {total_s, prep_s, dispatch_s, wait_s})``, as the bench splits it."""
+    from raytrace_tpu_torch.models import ray_tracer
+
+    t0 = time.perf_counter()
+    prep = ray_tracer.prepare_pipeline(p, "cuda", device=DEV, **kw)
+    t1 = time.perf_counter()
+    outs = prep.pipeline(*prep.operands)
+    t2 = time.perf_counter()
+    out = ray_tracer._finalize_call(p, prep, outs, os.path.join(
+        OUT_DIR, "f32_failed_rays.dat"))
+    t3 = time.perf_counter()
+    return out, dict(total_s=t3 - t0, prep_s=t1 - t0, dispatch_s=t2 - t1,
+                     wait_s=t3 - t2)
+
+
+def phase_f32():
+    """Phase 14, the f32 spectrum (``spectrum_dtype=float32``,
+    ``raytrace_tpu``'s default) on the card: both fixtures against their
+    goldens; the bench's ``ase_small``, ``seed_small``, ``seed_scale4``
+    and ``scale16`` rows through their f32 graphs (a warm-up that captures,
+    then timed calls with the stage split, in turns with the f64 call of
+    the same problem, which does not count), each f32 result within 1e-5
+    of the f64 call, the device time per kernel under the profiler, and
+    what the card reserves beyond the cached graphs' pools (the bench's
+    ``graph_memory_check``: the f32 and f64 graphs of a row are two
+    pools); an f32 stream at depth 2 and f32 sharded calls and a mesh
+    stream on two entries of the card, each within 1e-12 of the
+    synchronous f32 call. B1, B2-f32 and B3-f32 must have launched."""
+    from raytrace_tpu_torch import (check_ans, create_image,
+                                    create_image_stream, load_input)
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+    from raytrace_tpu_torch.testing import (fresh_problem,
+                                            perturbed_problems)
+
+    F32 = torch.float32
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for name in ("golden_ase.dat", "golden_seed.dat"):
+        p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
+        image, i_ang = launched(f"{name} in f32", f32_kernels_of(p),
+                                create_image, p, "cuda",
+                                spectrum_dtype=F32, device=DEV)
+        check_output(image, i_ang, p)
+        r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
+        if not check_ans(image0, i_ang0, image, i_ang) or max(r_img,
+                                                              r_ang) >= 1e-5:
+            fail(f"{name} in f32: check_ans or rel L2 image {r_img} I_ang "
+                 f"{r_ang}")
+        print(f"{name} in f32: check_ans ok, rel L2 image {r_img:.3e} I_ang "
+              f"{r_ang:.3e}", flush=True)
+        record[f"{name}_f32"] = dict(rel_image=r_img, rel_iang=r_ang)
+
+    ray_tracer.clear_pipeline_cache()
+    for row, reps in F32_ROWS.items():
+        source, scale = row_source(row)
+        p = fresh_problem(source, scale)
+        rays = p.seed_beam if p.seed is not None else p.euv_beam
+        rays = rays.nx * rays.ny * rays.na * rays.nb
+        torch.cuda.reset_peak_memory_stats(dev)
+        want = uncounted(create_image, p, "cuda", device=DEV)
+        t0 = time.perf_counter()
+        create_image(p, "cuda", spectrum_dtype=F32, device=DEV)
+        warm = time.perf_counter() - t0
+        split32, split64 = [], []
+        for r in range(reps):
+            before = {n: w.launch_count for n, w in WRAPPERS.items()}
+            got, sp = timed_split(p, spectrum_dtype=F32)
+            split32.append(sp)
+            if r == 0:
+                LAUNCHES_PER_CALL[f"{row}_f32"] = {
+                    n: w.launch_count - before[n]
+                    for n, w in WRAPPERS.items()}
+            split64.append(uncounted(timed_split, p)[1])
+        check_output(*got, p)
+        rel = max(rel_l2(got[0], want[0]), rel_l2(got[1], want[1]))
+        if rel > F32_REL:
+            fail(f"{row} in f32: rel L2 {rel} against the f64 call")
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        over = reserved - ray_tracer.graph_pool_bytes(dev)
+        mem_ok = over <= max(256 * 2 ** 20, 0.10 * peak)
+        if not mem_ok:
+            fail(f"{row} in f32: the card reserves {over} bytes beyond the "
+                 f"graphs' pools (peak {peak})")
+        prof32 = profile_calls(lambda: create_image(
+            p, "cuda", spectrum_dtype=F32, device=DEV), n=2)
+        prof64 = uncounted(profile_calls, lambda: create_image(
+            p, "cuda", device=DEV), n=2)
+        best32 = min(x["total_s"] for x in split32)
+        best64 = min(x["total_s"] for x in split64)
+        med = {k: sorted(x[k] for x in split32)[reps // 2]
+               for k in ("prep_s", "dispatch_s", "wait_s")}
+        print(f"{row} in f32 ({rays} rays): warm-up and capture {warm:.4f} "
+              f"s; s/call f32 {[round(x['total_s'], 5) for x in split32]} "
+              f"(best {best32:.5f}), f64 in turns "
+              f"{[round(x['total_s'], 5) for x in split64]} (best "
+              f"{best64:.5f}); median split f32 {med}; rel L2 against f64 "
+              f"{rel:.3e}; device ms/call f32 {prof32[0]:.3f} "
+              f"({prof32[2]}), f64 {prof64[0]:.3f} ({prof64[2]}); "
+              f"launches per call {LAUNCHES_PER_CALL[f'{row}_f32']}; peak "
+              f"{peak / 2 ** 30:.3f} GiB, reserved {reserved / 2 ** 30:.3f} "
+              f"GiB, beyond the pools {over / 2 ** 30:.3f} GiB",
+              flush=True)
+        record[f"{row}_f32"] = dict(
+            rays=rays, warmup_s=warm, split_f32=split32, split_f64=split64,
+            rel_vs_f64=rel, device_ms_f32=prof32[0],
+            kernels_ms_f32=prof32[2], launches_f32=prof32[1],
+            device_ms_f64=prof64[0], kernels_ms_f64=prof64[2],
+            peak_gib=peak / 2 ** 30, reserved_gib=reserved / 2 ** 30,
+            reserved_over_pools_gib=over / 2 ** 30, graph_memory_check=mem_ok)
+        ray_tracer.clear_pipeline_cache()
+
+    mesh2 = make_mesh(devices=("cuda:0", "cuda:0"))
+    for row in ("ase_small", "seed_small"):
+        source, _ = row_source(row)
+        units = perturbed_problems(source, 4, salt=7)
+        need = f32_kernels_of(units[0])
+        sync = [uncounted(create_image, u, "cuda", spectrum_dtype=F32,
+                          device=DEV)
+                for u in perturbed_problems(source, 4, salt=7)]
+
+        def stream(**kw):
+            return list(create_image_stream(
+                perturbed_problems(source, 4, salt=7), "cuda", None, F32,
+                depth=2, **kw))
+
+        got = {"stream": launched(f"{row} f32 stream", need, stream,
+                                  device=DEV),
+               "mesh stream": launched(f"{row} f32 mesh stream", need,
+                                       stream, mesh=mesh2),
+               "sharded": [launched(f"{row} f32 sharded", need,
+                                    create_image_sharded, u, mesh2, "cuda",
+                                    None, F32) for u in units]}
+        worst = {k: worst_rel(v, sync) for k, v in got.items()}
+        if max(worst.values()) > 1e-12 or any(len(v) != 4
+                                              for v in got.values()):
+            fail(f"{row} in f32: against the synchronous f32 call {worst}")
+        print(f"{row} in f32, 4 units with tables all different: rel L2 "
+              f"against the synchronous f32 call {worst}", flush=True)
+        record[f"{row}_f32_stream_mesh"] = worst
 
 
 #: phase 11's timed calls of each bench row, on one card and on the mesh
@@ -2200,6 +2528,8 @@ def main(argv) -> int:
                   cuda=torch.version.cuda, build_s=info["seconds"])
     WRAPPERS.update({"trace": trace_kernel, "bin_deposit": deposit_kernel,
                      "amplify": amplify_kernel,
+                     "bin_deposit_f32": deposit_kernel.F32,
+                     "amplify_f32": amplify_kernel.F32,
                      "gather_probe": gather_probe})
     path_kernels = ("trace", "bin_deposit", "amplify")
 
@@ -2230,6 +2560,10 @@ def main(argv) -> int:
                                               phase_prepared, path_kernels)
     _, record["host_launches"] = run_path("host surface", phase_host,
                                           path_kernels)
+    _, f32_launches = run_path("f32 path", phase_f32, F32_KERNELS)
+    launches.update({n: f32_launches[n] for n in F32_KERNELS
+                     if n.endswith("_f32")})
+    record["f32_launches"] = f32_launches
     if torch.cuda.device_count() >= 2:
         _, record["multicard_launches"] = run_path(
             "multi-card path", phase_multicard, path_kernels)
@@ -2243,13 +2577,20 @@ def main(argv) -> int:
              "raytrace_tpu/ops/deposit_kernel.py:76"),
             ("amplify", "amplify.cu",
              "raytrace_tpu/ops/pallas_amplify.py:123"),
+            ("bin_deposit_f32", "deposit.cu",
+             "raytrace_tpu/ops/deposit_kernel.py:76"),
+            ("amplify_f32", "amplify.cu",
+             "raytrace_tpu/ops/pallas_amplify.py:123"),
             ("gather_probe", "gather_probe.cu", "tools/vpu_probe.py:112")):
+        # the f32 instantiations' launches on the f32 path's calls
+        calls = ("seed_small_f32", "ase_small_f32") if "f32" in name \
+            else ("seed", "ase")
         kernels.append(dict(
             name=name, route="cuda", source="raytrace_tpu_torch/csrc/" + src,
             replaces=replaces, launches=launches[name], **results[name],
             launches_per_call={
-                "seeded": LAUNCHES_PER_CALL["seed"][name],
-                "ase": LAUNCHES_PER_CALL["ase"][name]}))
+                "seeded": LAUNCHES_PER_CALL[calls[0]][name],
+                "ase": LAUNCHES_PER_CALL[calls[1]][name]}))
     record["kernels"] = kernels
     finish("chip_smoke.json", [json.dumps({"kernels": kernels})])
     return 0

@@ -48,6 +48,26 @@
 // Compiled with -fmad=false: each f64 product and sum rounds on its own, as
 // the twin's separate PyTorch operations do, so the log-gain equals the
 // twin's bitwise. exp may differ from PyTorch's CUDA exp by an ulp.
+//
+// The f32 instantiation (rt_amplify_seeded_f32) is the TPU kernel's own
+// arithmetic, raytrace_tpu's default spectrum: the log-gain is an
+// unevaluated two-float pair (hi, lo) of f32 values, each term
+// gvl * gv an error-free Dekker product (factors split at a mask of 12 high
+// significand bits) added with Knuth's error-free two-sum,
+//
+//   p, pe = split_prod(gvl[b, t], gv[seg(t)][ivl[b, t], k])
+//   hi, e = two_sum(hi, p);   lo = lo + (e + pe)
+//   Iv[b, k] = f32(escaped[b] ? 0 : f[b] * fv[k]) * exp_fast2(hi, lo)
+//
+// with the seed product formed in f64 and rounded once, as raytrace_tpu
+// rounds its f64 entry seed, and exp_fast2 the range-reduced polynomial exp
+// of the pair (raytrace_tpu/ops/spectrum.py:70-88). Only f32 arithmetic
+// past the seed product: the same values as the plain twin
+// (raytrace_tpu_torch/ops/twofloat.py) bitwise, since -fmad=false keeps
+// the split and the two-sum error-free. Per element it writes 4 bytes in
+// place of 8: about 0.40 GB, 0.12 ms at 3.35 TB/s, for a 2^20-ray chunk at
+// K 82 and T 6; its f32 operations (about 25 per term and 30 for the exp,
+// per element) are of the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +146,158 @@ amplify_seeded_kernel(const double* __restrict__ f,
   }
 }
 
+// ---- the f32 instantiation: two-float arithmetic -------------------------
+
+constexpr float kLog2e = 0x1.715476p+0f;   // f32(log2 e)
+constexpr float kLn2Hi = 0x1.62e4p-1f;     // ln2's high part, 12 zero bits
+constexpr float kLn2Lo = 0x1.7f7d1cp-20f;  // ln2 - kLn2Hi in f32
+// |n| past this scales to 0 or inf, as the true result does
+constexpr float kNMax = 252.0f;
+
+// Knuth's two-sum: a + b = s + err exactly
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& err) {
+  s = a + b;
+  const float bb = s - a;
+  err = (a - (s - bb)) + (b - bb);
+}
+
+// the 12 high significand bits of a (sign and exponent kept)
+__device__ __forceinline__ float split_hi(float a) {
+  return __uint_as_float(__float_as_uint(a) & 0xFFFFF000u);
+}
+
+// Dekker's product: a * b = p + err exactly
+__device__ __forceinline__ void split_prod(float a, float b, float& p,
+                                           float& err) {
+  const float ah = split_hi(a);
+  const float al = a - ah;
+  const float bh = split_hi(b);
+  const float bl = b - bh;
+  p = a * b;
+  err = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+}
+
+// 2^n for n in [-126, 127]
+__device__ __forceinline__ float pow2(int n) {
+  return __int_as_float((n + 127) << 23);
+}
+
+// exp(hi + lo): n = round(hi log2e) (half to even), f = ((hi - n ln2_hi)
+// + lo) - n ln2_lo, e^f by a degree-7 Horner polynomial with the f32
+// reciprocals 1/k, scaled by 2^n as two exact powers of two (one rounding,
+// overflow to inf and gradual underflow as ldexp)
+__device__ __forceinline__ float exp_fast2(float hi, float lo) {
+  const float n = rintf(hi * kLog2e);
+  const float f = ((hi - n * kLn2Hi) + lo) - n * kLn2Lo;
+  float e = 1.0f + f * 0x1.24924ap-3f;             // 1/7
+  e = 1.0f + (f * 0x1.555556p-3f) * e;             // 1/6
+  e = 1.0f + (f * 0x1.99999ap-3f) * e;             // 1/5
+  e = 1.0f + (f * 0x1p-2f) * e;                    // 1/4
+  e = 1.0f + (f * 0x1.555556p-2f) * e;             // 1/3
+  e = 1.0f + (f * 0x1p-1f) * e;                    // 1/2
+  e = 1.0f + f * e;
+  // a NaN n comes only with a NaN f: the result is NaN whatever the scale
+  const int ni = (int)fminf(fmaxf(n, -kNMax), kNMax);
+  const int n1 = ni >> 1;  // floor(ni / 2)
+  return (e * pow2(n1)) * pow2(ni - n1);
+}
+
+template <int NSEG, int NSUB, int V>
+__global__ void __launch_bounds__(kThreads)
+amplify_seeded_f32_kernel(const double* __restrict__ f,
+                          const double* __restrict__ fv,
+                          const uint8_t* __restrict__ escaped,
+                          const int32_t* __restrict__ ivl,
+                          const float* __restrict__ gvl,
+                          const float* __restrict__ gv, int64_t B,
+                          int nseg_rt, int nsub_rt, int cells, int K,
+                          float* __restrict__ Iv, uint8_t* __restrict__ flags,
+                          float* __restrict__ log_gain) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
+  if (b >= B) return;
+  const int k = (int)threadIdx.x * V;
+  const int nseg = NSEG > 0 ? NSEG : nseg_rt;
+  const int nsub = NSUB > 0 ? NSUB : nsub_rt;
+  const int64_t T = (int64_t)nseg * nsub;
+  const int32_t* ivl_b = ivl + b * T;
+  const float* gvl_b = gvl + b * T;
+
+  float hi[V], lo[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    hi[v] = 0.0f;
+    lo[v] = 0.0f;
+  }
+#pragma unroll
+  for (int s = 0; s < (NSEG > 0 ? NSEG : nseg); ++s) {
+    const float* gv_s = gv + (int64_t)s * cells * K + k;
+#pragma unroll
+    for (int u = 0; u < (NSUB > 0 ? NSUB : nsub); ++u) {
+      const int t = s * nsub + u;
+      const float* row = gv_s + (int64_t)__ldg(ivl_b + t) * K;
+      const float g = __ldg(gvl_b + t);
+      float r[V];
+      if constexpr (V == 2) {
+        const float2 rr = __ldg(reinterpret_cast<const float2*>(row));
+        r[0] = rr.x;
+        r[1] = rr.y;
+      } else {
+        r[0] = __ldg(row);
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float p, pe, e;
+        split_prod(g, r[v], p, pe);
+        two_sum(hi[v], p, hi[v], e);
+        lo[v] = lo[v] + (e + pe);
+      }
+    }
+  }
+
+  const bool esc = __ldg(escaped + b) != 0;
+  const double fb = __ldg(f + b);
+  float out[V];
+  unsigned bits = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float iv0 = esc ? 0.0f : (float)(fb * __ldg(fv + k + v));
+    out[v] = iv0 * exp_fast2(hi[v], lo[v]);
+    bits |= out[v] < 0.0f ? 1u : 0u;
+    bits |= out[v] != out[v] ? 2u : 0u;
+  }
+  float* dst = Iv + b * K + k;
+  if constexpr (V == 2) {
+    __stcs(reinterpret_cast<float2*>(dst), make_float2(out[0], out[1]));
+  } else {
+    __stcs(dst, out[0]);
+  }
+  if (log_gain != nullptr) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      log_gain[b * K + k + v] = hi[v];
+      log_gain[B * K + b * K + k + v] = lo[v];
+    }
+  }
+  if (bits != 0) {
+    unsigned* word = reinterpret_cast<unsigned*>(flags + (b & ~(int64_t)3));
+    atomicOr(word, bits << (8 * (unsigned)(b & 3)));
+  }
+}
+
+template <int NSEG, int NSUB, int V>
+void launch_f32(const double* f, const double* fv, const uint8_t* escaped,
+                const int32_t* ivl, const float* gvl, const float* gv,
+                int64_t B, int nseg, int nsub, int cells, int K, float* Iv,
+                uint8_t* flags, float* log_gain, cudaStream_t stream) {
+  const dim3 threads(K / V, kThreads / (K / V));
+  const int64_t blocks = (B + threads.y - 1) / threads.y;
+  amplify_seeded_f32_kernel<NSEG, NSUB, V>
+      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K, Iv, flags,
+          log_gain);
+}
+
 template <int NSEG, int NSUB, int V>
 void launch(const double* f, const double* fv, const uint8_t* escaped,
             const int32_t* ivl, const float* gvl, const float* gv, int64_t B,
@@ -169,6 +341,38 @@ extern "C" int rt_amplify_seeded(const double* f, const double* fv,
     } else {
       launch<0, 0, 1>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K,
                       Iv, flags, log_gain, s);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The f32 instantiation's C entry: as rt_amplify_seeded, with Iv [B, K]
+// f32 and, where `log_gain` is not null, the pair's hi and lo as [2, B, K]
+// f32 (hi first). `pairs` (K even, gv 8-byte aligned) selects the float2
+// layout. K must be at most 256.
+extern "C" int rt_amplify_seeded_f32(const double* f, const double* fv,
+                                     const uint8_t* escaped,
+                                     const int32_t* ivl, const float* gvl,
+                                     const float* gv, int64_t B, int nseg,
+                                     int nsub, int cells, int K, int pairs,
+                                     float* Iv, uint8_t* flags,
+                                     float* log_gain, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(flags, 0, (size_t)((B + 3) & ~(int64_t)3), s);
+  if (B > 0 && K > 0) {
+    const bool shipped = nseg == 2 && nsub == 3;
+    if (pairs && shipped) {
+      launch_f32<2, 3, 2>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells,
+                          K, Iv, flags, log_gain, s);
+    } else if (pairs) {
+      launch_f32<0, 0, 2>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells,
+                          K, Iv, flags, log_gain, s);
+    } else if (shipped) {
+      launch_f32<2, 3, 1>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells,
+                          K, Iv, flags, log_gain, s);
+    } else {
+      launch_f32<0, 0, 1>(f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells,
+                          K, Iv, flags, log_gain, s);
     }
   }
   return (int)cudaGetLastError();

@@ -49,6 +49,15 @@
 //
 // Under atomics the summation order changes from run to run, so results
 // differ between runs at about 1e-15 relative. Compiled with -fmad=false.
+//
+// The f32 instantiation (rt_bin_deposit_f32) deposits f32 spectra, the
+// contribution raytrace_tpu's default spectrum gives its kernel
+// (raytrace_tpu/ops/binning.py:129-154): each product Iv * f32(scale) and
+// Iv * f32(2 dv) is formed in f32, as there, and then added in f64 into the
+// same f64 accumulators (the TPU's per-chunk f32 partial sums are an
+// artefact of its MXU; the port keeps the reference's f64 accumulation).
+// The spectra read halves: for the seeded 2^20-ray chunk about 0.36 GB,
+// 0.11 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,7 +81,7 @@ struct DepositArgs {
   const float* ca;
   const float* cb;
   const uint8_t* ok;
-  const double* Iv;  // [B, K]
+  const void* Iv;    // [B, K] of the instantiation's type
   int64_t B;
   int K;
   Axis x, y, a, b;
@@ -139,10 +148,19 @@ __device__ __forceinline__ void ray_bins(const DepositArgs& A, int64_t b,
   }
 }
 
-// V: frequencies per lane and load (2: double2 pairs, K even)
-template <int V>
+// the pair type of a spectrum element type
+template <typename T> struct Pair;
+template <> struct Pair<double> { using type = double2; };
+template <> struct Pair<float> { using type = float2; };
+
+// T: the spectra's element type (products with scale and 2 dv in T, sums in
+// f64); V: frequencies per lane and load (2: pairs, K even)
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 bin_deposit_kernel(DepositArgs A) {
+  using T2 = typename Pair<T>::type;
+  const T* Iv = static_cast<const T*>(A.Iv);
+  const T scale = (T)A.scale;
   const unsigned lane = threadIdx.x % warpSize;
   const int64_t t0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x - lane);
   if (t0 >= A.B) return;  // the whole warp
@@ -162,9 +180,11 @@ bin_deposit_kernel(DepositArgs A) {
     const int p = s0 + (int)lane;
     const bool active = p < units;
     const int k = p * V;
-    double w[V];
+    T w[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) w[j] = active ? 2.0 * __ldg(A.dv + k + j) : 0.0;
+    for (int j = 0; j < V; ++j) {
+      w[j] = active ? (T)(2.0 * __ldg(A.dv + k + j)) : (T)0;
+    }
     int cur = -1;  // the image bin of the running sum
     double run[V];
 #pragma unroll
@@ -172,7 +192,7 @@ bin_deposit_kernel(DepositArgs A) {
 
     for (int r0 = 0; r0 < n; r0 += kBatch) {
       int ci[kBatch], ca[kBatch];
-      double v[kBatch][V];
+      T v[kBatch][V];
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         const int r = r0 + q;
@@ -180,15 +200,17 @@ bin_deposit_kernel(DepositArgs A) {
         const int sa = __shfl_sync(kFull, ang, r % warpSize);
         ci[q] = r < n ? si : -1;
         ca[q] = r < n ? sa : -1;
-        const double* row = A.Iv + (t0 + r) * K + k;
+        const T* row = Iv + (t0 + r) * K + k;
         const bool load = active && (ci[q] >= 0 || ca[q] >= 0);
         if constexpr (V == 2) {
-          double2 e = make_double2(0.0, 0.0);
-          if (load) e = __ldg(reinterpret_cast<const double2*>(row));
+          T2 e;
+          e.x = (T)0;
+          e.y = (T)0;
+          if (load) e = __ldg(reinterpret_cast<const T2*>(row));
           v[q][0] = e.x;
           v[q][1] = e.y;
         } else {
-          v[q][0] = load ? __ldg(row) : 0.0;
+          v[q][0] = load ? __ldg(row) : (T)0;
         }
       }
 #pragma unroll
@@ -205,12 +227,14 @@ bin_deposit_kernel(DepositArgs A) {
             for (int j = 0; j < V; ++j) run[j] = 0.0;
           }
 #pragma unroll
-          for (int j = 0; j < V; ++j) run[j] = run[j] + v[q][j] * A.scale;
+          for (int j = 0; j < V; ++j) {
+            run[j] = run[j] + (double)(v[q][j] * scale);
+          }
         }
         if (ca[q] >= 0) {
           double part = 0.0;
 #pragma unroll
-          for (int j = 0; j < V; ++j) part = part + v[q][j] * w[j];
+          for (int j = 0; j < V; ++j) part = part + (double)(v[q][j] * w[j]);
           for (int o = warpSize / 2; o > 0; o /= 2) {
             part = part + __shfl_xor_sync(kFull, part, o);
           }
@@ -225,6 +249,29 @@ bin_deposit_kernel(DepositArgs A) {
     }
   }
   if (ang >= 0) atomicAdd(A.iang + ang, my_ang);
+}
+
+template <typename T>
+int bin_deposit(const float* cx, const float* cy, const float* ca,
+                const float* cb, const uint8_t* ok, const T* Iv, int64_t B,
+                int K, int pairs, const double* gx, int nx, double dx,
+                const double* gy, int ny, double dy, const double* ga, int na,
+                double da, const double* gb, int nb, double db,
+                const double* dv, double scale, int mirror_y, int negate_ab,
+                double* image, double* iang, int32_t* bins, void* stream) {
+  const DepositArgs A{cx, cy, ca, cb, ok, Iv, B, K,
+                      Axis{gx, nx, dx}, Axis{gy, ny, dy}, Axis{ga, na, da},
+                      Axis{gb, nb, db}, dv, scale, mirror_y, negate_ab,
+                      image, iang, bins};
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  if (blocks > 0) {
+    if (pairs) {
+      bin_deposit_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(A);
+    } else {
+      bin_deposit_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(A);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -246,17 +293,25 @@ extern "C" int rt_bin_deposit(const float* cx, const float* cy,
                               const double* dv, double scale, int mirror_y,
                               int negate_ab, double* image, double* iang,
                               int32_t* bins, void* stream) {
-  const DepositArgs A{cx, cy, ca, cb, ok, Iv, B, K,
-                      Axis{gx, nx, dx}, Axis{gy, ny, dy}, Axis{ga, na, da},
-                      Axis{gb, nb, db}, dv, scale, mirror_y, negate_ab,
-                      image, iang, bins};
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    if (pairs) {
-      bin_deposit_kernel<2><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(A);
-    } else {
-      bin_deposit_kernel<1><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(A);
-    }
-  }
-  return (int)cudaGetLastError();
+  return bin_deposit<double>(cx, cy, ca, cb, ok, Iv, B, K, pairs, gx, nx, dx,
+                             gy, ny, dy, ga, na, da, gb, nb, db, dv, scale,
+                             mirror_y, negate_ab, image, iang, bins, stream);
+}
+
+// The f32 instantiation's C entry: as rt_bin_deposit with Iv [B, K] f32
+// (8-byte aligned with K even where `pairs`).
+extern "C" int rt_bin_deposit_f32(const float* cx, const float* cy,
+                                  const float* ca, const float* cb,
+                                  const uint8_t* ok, const float* Iv,
+                                  int64_t B, int K, int pairs,
+                                  const double* gx, int nx, double dx,
+                                  const double* gy, int ny, double dy,
+                                  const double* ga, int na, double da,
+                                  const double* gb, int nb, double db,
+                                  const double* dv, double scale,
+                                  int mirror_y, int negate_ab, double* image,
+                                  double* iang, int32_t* bins, void* stream) {
+  return bin_deposit<float>(cx, cy, ca, cb, ok, Iv, B, K, pairs, gx, nx, dx,
+                            gy, ny, dy, ga, na, da, gb, nb, db, dv, scale,
+                            mirror_y, negate_ab, image, iang, bins, stream);
 }

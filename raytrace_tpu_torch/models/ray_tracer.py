@@ -7,10 +7,14 @@ PyTorch, following ``raytrace_tpu.models.ray_tracer``:
 * limits and uniform euv/seed grid checks (RayTraceImage.cpp:229-264);
 * method 1 (backward, ASE) or 2 (forward, seeded), scale and ray dims;
 * the N_start/N_parallel stride contract (RayTraceImage.cpp:300-328);
-* per chunk: entry rays -> trace -> f64 amplify (seeded: the per-ray seed
+* per chunk: entry rays -> trace -> amplify (seeded: the per-ray seed
   factor into kernel B3, which forms the entry spectrum and flags bad
   spectra) -> binning deposit (kernel B2: bins, scale and the I_ang sum in
   one pass) into the call's f64 image and I_ang accumulators;
+* the spectrum in f64 (the port's default, the reference's arithmetic) or,
+  with ``spectrum_dtype`` float32, in ``raytrace_tpu``'s default f32
+  two-float form (the f32 instantiations of B3 and B2, the f32 emissivity
+  amplify); the image and I_ang accumulate in f64 either way;
 * per-ray failure codes -1/-2/-3 -> bitmask on the device -> (only when a
   bit is set) the codes, failed-ray dump and abort (RayTraceImage.cpp:
   427-430).
@@ -38,7 +42,15 @@ Methods: ``cuda`` runs the hand-written kernels (trace B1, deposit B2,
 amplify B3) on a CUDA device; ``cpu`` runs their plain PyTorch twins (on the
 CPU unless a ``device`` is given -- a CUDA device then runs the twins on the
 card, which is how the kernels are checked end to end). The reference's
-method names map onto these two (``_METHOD_ALIASES``).
+method names and ``raytrace_tpu``'s (``pallas``; ``lax`` and ``lax-exact``)
+map onto these two (``_METHOD_ALIASES``).
+
+The entry points take ``raytrace_tpu``'s arguments in its positional order
+(``compute_method, chunk_size, spectrum_dtype, c, deposit, ...``); the
+device is keyword-only, after them. ``spectrum_dtype`` defaults to float64
+here, where ``raytrace_tpu`` defaults to float32 (a TPU emulates f64).
+``deposit`` takes ``raytrace_tpu``'s strategy names, which all run kernel
+B2 on ``cuda`` and its twin elsewhere (:data:`DEPOSITS`).
 
 The problem tables are copied to the device once per call, inside the timed
 region: the reference re-uploads per call because production gain tables
@@ -65,10 +77,11 @@ from raytrace_tpu_torch.utils import errors as err_util
 from raytrace_tpu_torch.utils.timer import profiler
 
 __all__ = ["create_image", "create_image_stream", "prepare_pipeline",
-           "PreparedCall", "resolve_method", "make_stride_mapper",
-           "generate_ray_indices", "available_methods", "reorder_perm",
-           "reorder_row_geom", "clear_pipeline_cache", "N_MAX", "K_MAX",
-           "METHODS", "GRAPH_POOL_SHARE"]
+           "PreparedCall", "resolve_method", "resolve_spectrum_dtype",
+           "check_deposit", "make_stride_mapper", "generate_ray_indices",
+           "available_methods", "reorder_perm", "reorder_row_geom",
+           "clear_pipeline_cache", "N_MAX", "K_MAX", "METHODS", "DEPOSITS",
+           "GRAPH_POOL_SHARE"]
 
 N_MAX = 20   # max length segments (RayTraceImageHelper.h:29)
 K_MAX = 100  # max frequencies (RayTraceImageHelper.h:30)
@@ -76,12 +89,25 @@ K_MAX = 100  # max frequencies (RayTraceImageHelper.h:30)
 METHODS = ("cuda", "cpu")
 
 #: the reference's compute_method names (src/RayTraceImage.cpp:333-423):
-#: the CUDA-class backends map to the kernels, every other one to the twins
+#: the CUDA-class backends map to the kernels, every other one to the twins;
+#: and ``raytrace_tpu``'s backends: its kernel backend ``pallas`` to the
+#: kernels, its XLA backends ``lax`` and ``lax-exact`` to the twins on the
+#: call's device (as it maps ``cuda`` to ``pallas`` and ``cpu`` to
+#: ``lax-exact``)
 _METHOD_ALIASES = {
     "threads": "cpu", "openmp": "cpu", "kokkos-serial": "cpu",
     "kokkos-openmp": "cpu", "kokkos-thread": "cpu", "openacc": "cpu",
     "kokkos-cuda": "cuda", "cuda-multigpu": "cuda",
+    "pallas": "cuda", "lax": "cpu", "lax-exact": "cpu",
 }
+
+#: ``raytrace_tpu``'s deposit strategies (``resolve_bin_deposit``). On a TPU
+#: they are different kernels: ``scatter`` a ``segment_sum``, ``matmul`` the
+#: one-hot MXU deposit (its Pallas kernel, what B2 ports) and ``dense`` a
+#: pure reduction over full natural-order ASE grids, which ``auto`` never
+#: picks. Here every name runs the one binning deposit, B2 on ``cuda`` and
+#: its twin elsewhere: the images agree up to the order of the f64 sums.
+DEPOSITS = ("auto", "scatter", "matmul", "dense")
 
 #: rays per chunk. On CUDA a call is a few large launches (the seeded
 #: shipped shape, 7.8M rays, is eight chunks); each chunk's f64 [chunk, K]
@@ -160,6 +186,36 @@ def resolve_method(compute_method: str = "auto", device=None):
     return name, device
 
 
+def resolve_spectrum_dtype(spectrum_dtype) -> torch.dtype:
+    """The spectrum's dtype, ``torch.float64`` or ``torch.float32``, from a
+    torch dtype or anything ``np.dtype()`` takes (``np.float32``,
+    ``"float32"``, a ``jnp.float32`` of a JAX-side caller). Anything else
+    raises :class:`RayTraceError`."""
+    if isinstance(spectrum_dtype, torch.dtype):
+        dtype = spectrum_dtype
+    else:
+        try:
+            dtype = {np.dtype(np.float64): torch.float64,
+                     np.dtype(np.float32): torch.float32}.get(
+                np.dtype(spectrum_dtype))
+        except (TypeError, ValueError):
+            dtype = None
+    if dtype not in (torch.float64, torch.float32):
+        raise err_util.RayTraceError(
+            f"spectrum_dtype must be float64 or float32, got "
+            f"{spectrum_dtype!r}")
+    return dtype
+
+
+def check_deposit(deposit: str) -> None:
+    """Raise the error ``raytrace_tpu`` raises for an unknown strategy
+    unless ``deposit`` names one of :data:`DEPOSITS`."""
+    if deposit not in DEPOSITS:
+        raise err_util.RayTraceError(
+            f"Unknown deposit strategy '{deposit}' "
+            "(expected auto/dense/matmul/scatter)")
+
+
 def _validate(problem: CreateImageProblem):
     """Limits and grid checks (RayTraceImage.cpp:229-264); returns
     (method, source beam, scale, timer name)."""
@@ -209,21 +265,30 @@ class PreparedCall(NamedTuple):
     #: (packed tables: one host uint8 buffer, page-locked for a CUDA device)
     operands: tuple
     #: the static configuration the pipeline was built for: ``N``, ``K``,
-    #: ``method``, ``use_emis``, ``dims``, ``chunk``, ``n_chunks``,
-    #: ``N_start``, ``N_parallel``, ``reorder`` (as built: on where asked
-    #: and the call has rays), ``graph`` (a CUDA graph, or the chunk loop
-    #: from Python), ``launches`` (each kernel's launches in one call),
-    #: the table layout and the host scalars the call bakes in
+    #: ``method``, ``use_emis``, ``spectrum_dtype``, ``dims``, ``chunk``,
+    #: ``n_chunks``, ``N_start``, ``N_parallel``, ``reorder`` (as built: on
+    #: where asked and the call has rays), ``graph`` (a CUDA graph, or the
+    #: chunk loop from Python), ``launches`` (each kernel's launches in one
+    #: call, the f32 instantiations also under their own names), the table
+    #: layout and the host scalars the call bakes in
     cfg: dict
     timer_name: str
 
 
 def prepare_pipeline(problem: CreateImageProblem, compute_method: str = "auto",
-                     device=None, chunk_size: int | None = None,
-                     c: float = 0.5, reorder: bool = False, *,
-                     eager: bool = False) -> PreparedCall:
+                     chunk_size: int | None = None,
+                     spectrum_dtype=torch.float64, c: float = 0.5,
+                     deposit: str = "auto", reorder: bool = False, *,
+                     device=None, eager: bool = False) -> PreparedCall:
     """Validate the problem, pack its tables on the host, resolve the static
     config and fetch the cached whole-call pipeline of that config.
+
+    The arguments are ``raytrace_tpu``'s, in its order; ``device`` (the
+    call's device: default the CUDA card where there is one) and ``eager``
+    are keyword-only. ``spectrum_dtype``: f64 (the default) or f32, the
+    JAX package's default two-float spectrum; the f32 and f64 calls of one
+    problem are two configs, two cached pipelines. ``deposit``: one of
+    :data:`DEPOSITS` (all run B2).
 
     The host-to-device copy of the tables happens when the returned
     pipeline is called with the returned operands, inside the timed region
@@ -237,7 +302,9 @@ def prepare_pipeline(problem: CreateImageProblem, compute_method: str = "auto",
     nothing to sort).
     """
     name, dev = resolve_method(compute_method, device)
-    return _prepare(problem, name, dev, chunk_size, c, reorder, eager=eager)
+    check_deposit(deposit)
+    return _prepare(problem, name, dev, chunk_size, c, reorder, eager=eager,
+                    spectrum_dtype=spectrum_dtype)
 
 
 def _card(dev) -> torch.device:
@@ -250,10 +317,12 @@ def _card(dev) -> torch.device:
 
 
 def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
-             readback=True, eager=False, packed=None) -> PreparedCall:
+             readback=True, eager=False, packed=None,
+             spectrum_dtype=torch.float64) -> PreparedCall:
     """:func:`prepare_pipeline` for a resolved method and device; without
     ``readback`` the call's output stays on the device (a mesh entry's
     partial); ``packed``: the tables of :func:`_pack`, when packed apart."""
+    sdtype = resolve_spectrum_dtype(spectrum_dtype)
     method, src, scale, timer_name = _validate(problem)
     dev = _card(dev)
     beam = problem.euv_beam
@@ -268,10 +337,12 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
     reorder = bool(reorder) and B_total > 0
     buf, layout = packed or _pack(problem, src, dev)
     kernels = n_chunks if name == "cuda" else 0
+    f32 = kernels if sdtype == torch.float32 else 0
     n_image = beam.nx * beam.ny * beam.nv
     cfg = dict(
         name=name, device=dev, N=problem.N, dz=float(beam.dz), K=beam.nv,
-        method=method, use_emis=use_emis, dims=dims, scale=float(scale),
+        method=method, use_emis=use_emis, spectrum_dtype=sdtype, dims=dims,
+        scale=float(scale),
         c=float(c), chunk=chunk, n_chunks=n_chunks, B_total=B_total,
         N_start=problem.N_start, N_parallel=skip, reorder=reorder,
         reorder_row=reorder_row_geom(problem) if reorder else None,
@@ -281,20 +352,27 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
         n_image=n_image, n_out=n_image + beam.na * beam.nb + N_FLAGS,
         readback=readback, graph=name == "cuda" and not eager,
         launches=dict(trace=kernels, bin_deposit=kernels,
-                      amplify=0 if use_emis else kernels))
+                      amplify=0 if use_emis else kernels,
+                      bin_deposit_f32=f32,
+                      amplify_f32=0 if use_emis else f32))
     return PreparedCall(pipeline=_pipeline(cfg), operands=(buf,), cfg=cfg,
                         timer_name=timer_name + "-" + name)
 
 
 def create_image(problem: CreateImageProblem, compute_method: str = "auto",
-                 device=None, chunk_size: int | None = None, c: float = 0.5,
-                 failed_ray_path: str = "Failed_RayTrace_rays.dat",
-                 ) -> tuple[np.ndarray, np.ndarray]:
+                 chunk_size: int | None = None,
+                 spectrum_dtype=torch.float64, c: float = 0.5,
+                 deposit: str = "auto",
+                 failed_ray_path: str = "Failed_RayTrace_rays.dat", *,
+                 device=None) -> tuple[np.ndarray, np.ndarray]:
     """Compute the near-field image and the far-field angular image.
 
-    Returns ``(image, I_ang)`` as float64 numpy arrays in the reference's
-    flat layouts ``image[nv*(i1+i2*nx)+iv]`` and ``I_ang[i3+i4*na]``; they
-    are also stored on ``problem.image`` / ``problem.I_ang``. Raises
+    ``raytrace_tpu.create_image``'s arguments in its order (see
+    :func:`prepare_pipeline`; ``spectrum_dtype`` defaults to float64 here),
+    and the keyword ``device``. Returns ``(image, I_ang)`` as float64 numpy
+    arrays in the reference's flat layouts ``image[nv*(i1+i2*nx)+iv]`` and
+    ``I_ang[i3+i4*na]``; they are also stored on ``problem.image`` /
+    ``problem.I_ang``. Raises
     :class:`~raytrace_tpu_torch.utils.errors.RayTraceError` on invalid
     input or when any ray fails, after writing the failed-ray dump to
     ``failed_ray_path``. The call is :func:`prepare_pipeline`, the
@@ -303,8 +381,8 @@ def create_image(problem: CreateImageProblem, compute_method: str = "auto",
     profiler.start("create_image")
     dev = None
     try:
-        prep = prepare_pipeline(problem, compute_method, device, chunk_size,
-                                c)
+        prep = prepare_pipeline(problem, compute_method, chunk_size,
+                                spectrum_dtype, c, deposit, device=device)
         dev = prep.cfg["device"]
         profiler.start(prep.timer_name)
         try:
@@ -341,13 +419,15 @@ def _finalize_call(problem: CreateImageProblem, prep: PreparedCall,
     return image_np, i_ang_np
 
 
-def create_image_stream(problems, compute_method: str = "auto", device=None,
-                        chunk_size: int | None = None, c: float = 0.5,
-                        depth: int = 2,
+def create_image_stream(problems, compute_method: str = "auto",
+                        chunk_size: int | None = None,
+                        spectrum_dtype=torch.float64, c: float = 0.5,
+                        deposit: str = "auto", depth: int = 2,
                         failed_ray_path: str = "Failed_RayTrace_rays.dat",
-                        reorder: bool = False, mesh=None):
+                        mesh=None, reorder: bool = False, *, device=None):
     """Overlapped execution over a sequence of independent work units
-    (``raytrace_tpu.create_image_stream``).
+    (``raytrace_tpu.create_image_stream``, its arguments in its order, and
+    the keyword ``device``).
 
     Yields ``(image, I_ang)`` per problem, in order, as :func:`create_image`
     returns them: the same per-call table upload, failure path and layouts.
@@ -377,13 +457,15 @@ def create_image_stream(problems, compute_method: str = "auto", device=None,
     """
     if depth < 1:
         raise err_util.RayTraceError("create_image_stream needs depth >= 1")
+    check_deposit(deposit)
     if mesh is None:
         name, dev = resolve_method(compute_method, device)
         feedback = _Feedback()
 
         def dispatch(problem):
-            prep = prepare_pipeline(problem, name, dev, chunk_size, c,
-                                    reorder)
+            prep = prepare_pipeline(problem, name, chunk_size,
+                                    spectrum_dtype, c, deposit, reorder,
+                                    device=dev)
             outs = prep.pipeline(*feedback.operands(prep.cfg, prep.operands))
             feedback.update(prep.cfg, outs)
             return problem, prep, outs
@@ -400,7 +482,8 @@ def create_image_stream(problems, compute_method: str = "auto", device=None,
         from raytrace_tpu_torch.parallel import sharding
 
         runner = sharding.MeshRunner(mesh, compute_method, chunk_size, c,
-                                     reorder=reorder)
+                                     reorder=reorder,
+                                     spectrum_dtype=spectrum_dtype)
         dev = runner.mesh[0]
         dispatch = runner.dispatch
 
@@ -625,6 +708,7 @@ def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
     Nothing here waits for the device: a CUDA graph captures it."""
     dev, method, N, K = cfg["device"], cfg["method"], cfg["N"], cfg["K"]
     dims, use_emis = cfg["dims"], cfg["use_emis"]
+    sdtype = cfg["spectrum_dtype"]
     if cfg["name"] == "cuda":
         trace, gain_only, deposit = (trace_kernel.trace_batch,
                                      amplify_kernel.amplify_gain,
@@ -671,14 +755,17 @@ def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
             # back to natural order: the next call's sort key
             counts.narrow(0, start, n).index_copy_(0, perm, cnt)
         if use_emis:
-            Iv = spectrum.amplify(res, torch.zeros((n, K), **f64), gv, N)
+            Iv = spectrum.amplify(
+                res, torch.zeros((n, K), dtype=sdtype, device=dev), gv, N,
+                dtype=sdtype)
             flags = amplify_kernel.iv_flags(Iv)
         else:
             # the entry seed in factor form; B3 forms f * fv, masks the
             # escaped rays and flags the bad spectra
             f = (torch.zeros(n, **f64) if entry_seed is None else
                  seed_ops.seed_factor(entry_seed, i, j, k, m))
-            Iv, flags = gain_only(f, fv, res.escaped, res.ivl, res.gvl, gv)
+            Iv, flags = gain_only(f, fv, res.escaped, res.ivl, res.gvl, gv,
+                                  dtype=sdtype)
         code = torch.where(res.perp, -1, torch.where(
             (flags & amplify_kernel.FLAG_NEG) != 0, -2,
             torch.where((flags & amplify_kernel.FLAG_NAN) != 0, -3, 0)))
@@ -712,12 +799,13 @@ def _drain(steps):
 
 
 def _dispatch(problem, name, dev, chunk_size=None, c=0.5, readback=True,
-              prev=None) -> _Call:
+              prev=None, spectrum_dtype=torch.float64) -> _Call:
     """One call of ``problem`` run from Python, also on a CUDA device (the
     reference the graphs are held against); with ``prev``, the reorder
     sorted by it. Nothing here waits for the device."""
     prep = _prepare(problem, name, dev, chunk_size, c,
-                    reorder=prev is not None, readback=readback, eager=True)
+                    reorder=prev is not None, readback=readback, eager=True,
+                    spectrum_dtype=spectrum_dtype)
     return prep.pipeline(*prep.operands,
                          *(() if prev is None else (prev,)))
 
@@ -744,9 +832,10 @@ class _EagerPipeline:
 
 
 #: kernel launches per call are counted per wrapper: the modules by the
-#: names of ``cfg["launches"]``
+#: names of ``cfg["launches"]``, and the f32 instantiations' own counters
 _WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
-             "amplify": amplify_kernel}
+             "amplify": amplify_kernel, "bin_deposit_f32": deposit_kernel.F32,
+             "amplify_f32": amplify_kernel.F32}
 
 
 def _launch_counts() -> dict:

@@ -72,7 +72,7 @@ def bin_images(Iv, res, rays: dict, beam: DeviceBeam, method: int,
                scale: float, valid, image_acc, iang_acc, deposit) -> None:
     """Deposit a batch of spectra into the call's accumulators, in place.
 
-    ``Iv``: [B, K] f64; ``valid``: [B] bool (failed rays are left out, as
+    ``Iv``: [B, K] f64, or f32 for the f32 spectrum; ``valid``: [B] bool (failed rays are left out, as
     the reference ``continue``s on error); ``image_acc``: [nx*ny, K] f64
     in cell-major reference layout; ``iang_acc``: [na*nb, 1] f64;
     ``deposit``: ``deposit_kernel.bin_deposit`` (kernel B2) or its twin

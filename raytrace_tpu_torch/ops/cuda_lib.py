@@ -32,7 +32,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["load_library", "build_info", "check", "device_guard",
-           "count_launch", "graph_nodes", "NVCC_FLAGS", "CSRC_DIR"]
+           "count_launch", "Launches", "graph_nodes", "NVCC_FLAGS",
+           "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch"
@@ -55,7 +56,10 @@ _SIGNATURES = {
     "rt_find_index": [_P, _I, _P, _I64, _P, _P],
     "rt_bin_deposit": [_P] * 6 + [_I64, _I, _I] + [_P, _I, _D] * 4
                       + [_P, _D, _I, _I] + [_P] * 3 + [_P],
+    "rt_bin_deposit_f32": [_P] * 6 + [_I64, _I, _I] + [_P, _I, _D] * 4
+                          + [_P, _D, _I, _I] + [_P] * 3 + [_P],
     "rt_amplify_seeded": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
+    "rt_amplify_seeded_f32": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
     "rt_gather_probe": [_P] * 3 + [_I64] + [_I] * 2 + [_P],
 }
 
@@ -165,6 +169,21 @@ def count_launch(counts: dict, dev) -> None:
     its total ``launch_count``)."""
     dev = torch.device(dev)
     counts[dev] = counts.get(dev, 0) + 1
+
+
+class Launches:
+    """The launches of one instantiation of a kernel: ``launch_count`` in
+    all and ``device_launches`` per device, beside its wrapper's totals
+    (the same two names, so a counter of either kind reads alike)."""
+
+    def __init__(self):
+        self.launch_count = 0
+        self.device_launches: dict = {}
+
+    def count(self, dev) -> None:
+        """One launch on ``dev``."""
+        self.launch_count += 1
+        count_launch(self.device_launches, dev)
 
 
 def check(rc: int, name: str) -> None:

@@ -17,10 +17,19 @@ Under atomics the summation order changes from run to run, so kernel
 results differ between runs at about 1e-15 relative; the bins are the
 twin's bitwise.
 
+The spectra are f64, or f32 where the call runs ``raytrace_tpu``'s default
+f32 spectrum (the kernel's f32 instantiation): then each product
+``Iv * f32(scale)`` and ``Iv * f32(2 dv)`` is formed in f32, as
+``raytrace_tpu/ops/binning.py:145-154`` forms them, and added in f64 into
+the same f64 accumulators. ``raytrace_tpu`` sums a chunk in f32 first
+(its MXU's partial sums); the port keeps the reference's f64 accumulation,
+so the I_ang dot product is summed in f64 too.
+
 :func:`bin_deposit` dispatches on the device: CPU tensors take the plain
 twin, CUDA tensors launch the kernel (or raise) on their own card.
-``launch_count`` counts kernel launches, ``device_launches`` them per
-device.
+``launch_count`` counts kernel launches of both instantiations,
+``device_launches`` them per device, and :data:`F32` the f32
+instantiation's alone.
 """
 
 from __future__ import annotations
@@ -32,20 +41,23 @@ from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.binning import bin_indices
 
 __all__ = ["bin_deposit", "bin_deposit_plain", "deposit_plain",
-           "launch_count", "device_launches"]
+           "launch_count", "device_launches", "F32"]
 
 #: kernel launches since import (or since a caller last reset it)
 launch_count = 0
 #: the same launches per device
 device_launches: dict = {}
+#: the launches of the f32 instantiation (also counted above)
+F32 = cuda_lib.Launches()
 
 
 def deposit_plain(out: torch.Tensor, contrib: torch.Tensor,
                   bins: torch.Tensor) -> torch.Tensor:
     """``out[bins[b]] += contrib[b]`` for every b with ``0 <= bins[b] <
-    len(out)``, in place with ``index_add_``; returns ``out``."""
+    len(out)``, in place with ``index_add_`` in ``out``'s dtype; returns
+    ``out``."""
     ok = (bins >= 0) & (bins < out.shape[0])
-    out.index_add_(0, bins[ok].long(), contrib[ok])
+    out.index_add_(0, bins[ok].long(), contrib[ok].to(out.dtype))
     return out
 
 
@@ -53,18 +65,27 @@ def bin_deposit_plain(Iv, coords, ok, beam: DeviceBeam, method: int,
                       scale: float, image_acc, iang_acc) -> None:
     """Plain twin of kernel B2: the bins (:func:`binning.bin_indices`),
     ``Iv * scale`` into ``image_acc`` and ``Iv @ (2 dv)`` into
-    ``iang_acc``, in place."""
+    ``iang_acc``, in place. For f32 ``Iv`` the products with ``f32(scale)``
+    and ``f32(2 dv)`` are f32 and their sums f64."""
     bins = bin_indices(coords, ok, beam, method)
-    deposit_plain(image_acc, Iv * scale, bins[:, 0])
-    deposit_plain(iang_acc, (Iv @ (2.0 * beam.dv))[:, None], bins[:, 1])
+    if Iv.dtype == torch.float32:
+        contrib = Iv * torch.full((), scale, dtype=torch.float32,
+                                  device=Iv.device)
+        ang = (Iv * (2.0 * beam.dv).to(torch.float32)).to(
+            torch.float64).sum(dim=1)
+    else:
+        contrib = Iv * scale
+        ang = Iv @ (2.0 * beam.dv)
+    deposit_plain(image_acc, contrib, bins[:, 0])
+    deposit_plain(iang_acc, ang[:, None], bins[:, 1])
 
 
 def _check(Iv, coords, ok, beam, image_acc, iang_acc):
     dev = Iv.device
-    if (Iv.dtype != torch.float64 or Iv.dim() != 2
+    if (Iv.dtype not in (torch.float64, torch.float32) or Iv.dim() != 2
             or not Iv.is_contiguous()):
-        raise ValueError("bin_deposit: Iv must be a contiguous float64 "
-                         "[B, K] tensor")
+        raise ValueError("bin_deposit: Iv must be a contiguous float64 or "
+                         "float32 [B, K] tensor")
     B, K = Iv.shape
     if len(coords) != 4:
         raise ValueError("bin_deposit: coords must be (x, y, a, b)")
@@ -91,7 +112,8 @@ def bin_deposit(Iv, coords, ok, beam: DeviceBeam, method: int,
     """Bin a chunk and deposit it into the call's accumulators, in place:
     kernel B2 for CUDA tensors, the plain twin for CPU tensors.
 
-    ``Iv`` [B, K] f64 spectra; ``coords`` the four [B] f32 coordinates from
+    ``Iv`` [B, K] f64 or f32 spectra (f32: the kernel's f32
+    instantiation); ``coords`` the four [B] f32 coordinates from
     :func:`binning.source_coords` (entry rays for method 1, exit rays for
     method 2, before the negation and mirror); ``ok`` [B] bool, the rays to
     deposit; ``beam`` the EUV beam's grids on the same device; ``image_acc``
@@ -112,27 +134,31 @@ def bin_deposit(Iv, coords, ok, beam: DeviceBeam, method: int,
     global launch_count
     launch_count += 1
     cuda_lib.count_launch(device_launches, Iv.device)
+    if Iv.dtype == torch.float32:
+        F32.count(Iv.device)
 
 
 def _launch(lib, Iv, coords, ok, beam, method, scale, image_acc, iang_acc,
             stream, bins=False):
-    """Launch ``rt_bin_deposit`` of ``lib`` on ``stream``; inputs already
-    checked. Returns the [B, 2] i32 bins (-1 for none) when ``bins``, else
-    None."""
+    """Launch ``rt_bin_deposit`` (``rt_bin_deposit_f32`` for f32 ``Iv``)
+    of ``lib`` on ``stream``; inputs already checked. Returns the [B, 2]
+    i32 bins (-1 for none) when ``bins``, else None."""
     B, K = Iv.shape
     out = (torch.empty((B, 2), dtype=torch.int32, device=Iv.device)
            if bins else None)
-    pairs = K % 2 == 0 and Iv.data_ptr() % 16 == 0
+    pairs = K % 2 == 0 and Iv.data_ptr() % (2 * Iv.element_size()) == 0
+    name = ("rt_bin_deposit_f32" if Iv.dtype == torch.float32
+            else "rt_bin_deposit")
     axes = []
     for g, d in ((beam.x, beam.dx), (beam.y, beam.dy), (beam.a, beam.da),
                  (beam.b, beam.db)):
         axes += [g.data_ptr(), g.shape[0], float(d)]
     with cuda_lib.device_guard(Iv.device):
-        rc = lib.rt_bin_deposit(
+        rc = getattr(lib, name)(
             *(c.data_ptr() for c in coords), ok.data_ptr(), Iv.data_ptr(), B,
             K, int(pairs), *axes, beam.dv.data_ptr(), float(scale),
             int(method == 2 and beam.y0_nonneg), int(method == 2),
             image_acc.data_ptr(), iang_acc.data_ptr(),
             None if out is None else out.data_ptr(), stream)
-    cuda_lib.check(rc, "rt_bin_deposit")
+    cuda_lib.check(rc, name)
     return out

@@ -88,23 +88,29 @@ class PreparedShardedCall(NamedTuple):
     shards: tuple          # (device, shard problem) per mesh entry
     pipeline: tuple        # each entry's pipeline
     operands: tuple        # (packed tables,), the same for every entry
-    #: the call's ``N``, ``K``, ``method``, ``use_emis``, ``dims``,
-    #: ``reorder`` (of any entry) and ``launches`` (the entries' summed),
-    #: and ``entries``, each entry's own cfg
+    #: the call's ``N``, ``K``, ``method``, ``use_emis``,
+    #: ``spectrum_dtype``, ``dims``, ``reorder`` (of any entry) and
+    #: ``launches`` (the entries' summed), and ``entries``, each entry's
+    #: own cfg
     cfg: dict
 
 
 def prepare_sharded(problem: CreateImageProblem, mesh,
                     compute_method: str = "auto",
-                    chunk_size: int | None = None, c: float = 0.5,
-                    reorder: bool = False, eager: bool = False
-                    ) -> PreparedShardedCall:
+                    chunk_size: int | None = None,
+                    spectrum_dtype=torch.float64, c: float = 0.5,
+                    deposit: str = "auto", reorder: bool = False, *,
+                    eager: bool = False) -> PreparedShardedCall:
     """Validate the problem, resolve the method on the mesh (``cuda`` on a
     CPU mesh raises, as :func:`ray_tracer.resolve_method` does), give each
     of this rank's mesh entries its stride of the rays and prepare each
-    entry's call (``eager`` as in :func:`ray_tracer.prepare_pipeline`)."""
+    entry's call. The arguments are ``raytrace_tpu``'s, in its order
+    (``spectrum_dtype`` and ``deposit`` as in
+    :func:`ray_tracer.prepare_pipeline`); ``eager`` is keyword-only, as
+    there."""
     mesh = make_mesh(devices=mesh)
     method = ray_tracer.resolve_method(compute_method, mesh[0])[0]
+    ray_tracer.check_deposit(deposit)
     src = ray_tracer._validate(problem)[1]
     D = len(mesh)
     G = distributed.size() * D
@@ -117,10 +123,12 @@ def prepare_sharded(problem: CreateImageProblem, mesh,
         for d, dev in enumerate(mesh))
     packed = ray_tracer._pack(problem, src, mesh[0])
     entries = [ray_tracer._prepare(sp, method, dev, chunk_size, c, reorder,
-                                   readback=False, eager=eager, packed=packed)
+                                   readback=False, eager=eager, packed=packed,
+                                   spectrum_dtype=spectrum_dtype)
                for dev, sp in shards]
     cfgs = tuple(e.cfg for e in entries)
-    cfg = {k: cfgs[0][k] for k in ("N", "K", "method", "use_emis", "dims")}
+    cfg = {k: cfgs[0][k] for k in ("N", "K", "method", "use_emis",
+                                   "spectrum_dtype", "dims")}
     cfg.update(reorder=any(e["reorder"] for e in cfgs),
                launches={n: sum(e["launches"][n] for e in cfgs)
                          for n in cfgs[0]["launches"]},
@@ -170,15 +178,19 @@ class MeshRunner:
     each CUDA entry's compute stream and, with ``reorder``, each entry's
     reorder feedback (keyed by the entry's own stride). ``eager`` runs the
     entries' chunk loops from Python on CUDA too, in turns, one chunk of
-    each entry a turn."""
+    each entry a turn. ``spectrum_dtype`` as in
+    :func:`ray_tracer.prepare_pipeline`."""
 
     def __init__(self, mesh, compute_method: str = "auto",
                  chunk_size: int | None = None, c: float = 0.5,
-                 reorder: bool = False, eager: bool = False):
+                 reorder: bool = False, eager: bool = False,
+                 spectrum_dtype=torch.float64):
         self.mesh = make_mesh(devices=mesh)
         self.compute_method = compute_method
         ray_tracer.resolve_method(compute_method, self.mesh[0])
+        ray_tracer.resolve_spectrum_dtype(spectrum_dtype)
         self.chunk_size, self.c = chunk_size, c
+        self.spectrum_dtype = spectrum_dtype
         self.reorder, self.eager = reorder, eager
         self.compute = [_compute_stream(dev, d) if dev.type == "cuda"
                         else None for d, dev in enumerate(self.mesh)]
@@ -197,8 +209,8 @@ class MeshRunner:
         ``mesh[0]`` (and over the ranks on the card, in a group of one rank
         per card) and its readback; nothing here waits for a device."""
         prep = prepare_sharded(problem, self.mesh, self.compute_method,
-                               self.chunk_size, self.c, self.reorder,
-                               self.eager)
+                               self.chunk_size, self.spectrum_dtype, self.c,
+                               "auto", self.reorder, eager=self.eager)
         cards = [dev for dev in dict.fromkeys(prep.mesh) if dev.type == "cuda"]
         entries = prep.cfg["entries"]
 
@@ -282,19 +294,24 @@ def timeline(call: _ShardedCall) -> dict | None:
 
 def create_image_sharded(problem: CreateImageProblem, mesh,
                          compute_method: str = "auto",
-                         chunk_size: int | None = None, c: float = 0.5,
+                         chunk_size: int | None = None,
+                         spectrum_dtype=torch.float64, c: float = 0.5,
+                         deposit: str = "auto",
                          failed_ray_path: str = "Failed_RayTrace_rays.dat",
                          ) -> tuple[np.ndarray, np.ndarray]:
     """``create_image`` over a mesh of devices (and, in a process group,
     over every rank's mesh): each entry computes a stride share of the rays
     and every rank returns the summed ``(image, I_ang)``, stored on the
     problem as :func:`~raytrace_tpu_torch.models.ray_tracer.create_image`
-    stores them. Raises :class:`RayTraceError` on invalid input or when a
-    ray fails anywhere, after each rank dumps its own failed rays."""
+    stores them. The arguments are ``raytrace_tpu``'s, in its order.
+    Raises :class:`RayTraceError` on invalid input or when a ray fails
+    anywhere, after each rank dumps its own failed rays."""
     profiler.start("create_image-sharded")
     dev = None
     try:
-        runner = MeshRunner(mesh, compute_method, chunk_size, c)
+        ray_tracer.check_deposit(deposit)
+        runner = MeshRunner(mesh, compute_method, chunk_size, c,
+                            spectrum_dtype=spectrum_dtype)
         dev = runner.mesh[0]
         return _finalize_sharded(runner.dispatch(problem), failed_ray_path)
     finally:

@@ -289,7 +289,7 @@ def _timed_call(ctx: _Ctx, p) -> dict:
     """One synchronous call through the call path's own stages (what
     ``create_image`` runs), with the stage split."""
     t0 = time.perf_counter()
-    prep = ray_tracer.prepare_pipeline(p, ctx.method, ctx.dev,
+    prep = ray_tracer.prepare_pipeline(p, ctx.method, device=ctx.dev,
                                        eager=ctx.eager)
     t1 = time.perf_counter()
     outs = prep.pipeline(*prep.operands)
@@ -371,7 +371,7 @@ def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
                 f"mem_after_{name}": mem})
     row.update({prefix + k: v
                 for k, v in _graph_memory(ctx, ctx.dev, mem).items()})
-    prep = ray_tracer.prepare_pipeline(pristine, ctx.method, ctx.dev,
+    prep = ray_tracer.prepare_pipeline(pristine, ctx.method, device=ctx.dev,
                                        eager=ctx.eager)
     row[f"{prefix}graph"] = _graphs(prep.pipeline)
     dev_s = _device_s(ctx.dev, lambda: _timed_call(ctx, probs[0]))

@@ -62,7 +62,7 @@ def run(n_steps: int = 2) -> int:
         p = synthetic_problem(nx=nx, ny=ny, na=na, nb=nb, nv=nv,
                               full_plane=True, rng=it)
         p.N_start, p.N_parallel = rank, size
-        image, i_ang = create_image(p, "auto", dev, chunk_size=2048)
+        image, i_ang = create_image(p, "auto", chunk_size=2048, device=dev)
         img3 = image.reshape(nx * ny, nv)
 
         step = IntensityStep().initialize(nx, ny, na, nb, nv, N_seed=1)

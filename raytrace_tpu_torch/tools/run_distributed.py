@@ -78,10 +78,11 @@ def main() -> int:
         # --- MPI-style run: stride decomposition over ranks, image sum -------
         kw = dict(nx=6, ny=4, na=4, nb=3, nv=5)
         img_full, ang_full = create_image(synthetic_problem(**kw), "auto",
-                                          dev, chunk_size=1024)
+                                          chunk_size=1024, device=dev)
         p_mine = synthetic_problem(**kw)
         p_mine.N_start, p_mine.N_parallel = pid, nproc
-        img_p, ang_p = create_image(p_mine, "auto", dev, chunk_size=1024)
+        img_p, ang_p = create_image(p_mine, "auto", chunk_size=1024,
+                                    device=dev)
         img_sum, ang_sum = collectives.host_sum_arrays([img_p, ang_p])
         check("stride_partition_image",
               np.allclose(img_sum, img_full, rtol=1e-10, atol=1e-300))

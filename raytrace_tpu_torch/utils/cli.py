@@ -10,6 +10,13 @@ Usage (the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
                            names are accepted as aliases
       -iterations=N        timed calls per method (default 5)
       -scale=S             problem-size scale factor (default 1.0)
+      -spectrum=f64|f32    the spectrum's precision (default f64, the
+                           reference's double arithmetic, native on the
+                           card). f32 is raytrace_tpu's default (its CLI
+                           defaults to -spectrum=f32, since a TPU emulates
+                           f64): the two-float f32 spectrum, run by the f32
+                           instantiations of the amplify and deposit
+                           kernels; images still accumulate in f64
       -profile             trace the timed calls with torch.profiler and
                            print device time per kernel, kernel launches
                            per call and the device's busy share of the
@@ -84,6 +91,10 @@ from raytrace_tpu_torch.utils.timer import profiler
 __all__ = ["main", "Options", "run_tests"]
 
 
+#: -spectrum= values and the spectrum dtype each runs
+_SPECTRUM = {"f64": torch.float64, "f32": torch.float32}
+
+
 class Options:
     """Command-line options (Options::read_cmd, CreateImageHelpers.h:56-95)."""
 
@@ -91,6 +102,7 @@ class Options:
         self.methods: list[str] = []
         self.iterations = 5
         self.scale = 1.0
+        self.spectrum = "f64"
         self.profile = False
         self.stream = 0
         self.reorder = False
@@ -105,6 +117,11 @@ class Options:
                 self.iterations = int(arg.split("=", 1)[1])
             elif arg.startswith("-scale="):
                 self.scale = float(arg.split("=", 1)[1])
+            elif arg.startswith("-spectrum="):
+                self.spectrum = arg.split("=", 1)[1]
+                if self.spectrum not in _SPECTRUM:
+                    raise SystemExit(f"-spectrum= takes f64 or f32, got "
+                                     f"{self.spectrum!r}")
             elif arg == "-profile":
                 self.profile = True
             elif arg.startswith("-stream="):
@@ -122,6 +139,11 @@ class Options:
         if self.reorder and self.stream <= 0:
             raise SystemExit("-reorder requires -stream=N (it reorders the "
                              "serving stream's rays)")
+
+    @property
+    def spectrum_dtype(self) -> torch.dtype:
+        """The dtype of ``-spectrum=``."""
+        return _SPECTRUM[self.spectrum]
 
 
 def _gather_times(times, label=None):
@@ -196,8 +218,9 @@ def _stream_rows(filename, options, label, rows, problem, **stream_kw
 
     def make_stream(units):
         nonlocal n_bad
-        for image, i_ang in create_image_stream(units, reorder=options.reorder,
-                                                **stream_kw):
+        for image, i_ang in create_image_stream(
+                units, spectrum_dtype=options.spectrum_dtype,
+                reorder=options.reorder, **stream_kw):
             n_bad += not (np.isfinite(image).all()
                           and np.isfinite(i_ang).all())
             yield image, i_ang
@@ -205,11 +228,14 @@ def _stream_rows(filename, options, label, rows, problem, **stream_kw
     distributed.barrier()
     per_call, detail = time_stream_detailed(filename, options.stream, 2,
                                             make_stream, scale=options.scale)
+    sdtype = options.spectrum_dtype
     ran_reorder = options.reorder and (
-        prepare_sharded(problem, stream_kw["mesh"], reorder=True)
+        prepare_sharded(problem, stream_kw["mesh"], spectrum_dtype=sdtype,
+                        reorder=True)
         if "mesh" in stream_kw else
         prepare_pipeline(problem, stream_kw["compute_method"],
-                         stream_kw["device"], reorder=True)).cfg["reorder"]
+                         spectrum_dtype=sdtype, reorder=True,
+                         device=stream_kw["device"])).cfg["reorder"]
     tag = "+stream+reorder" if ran_reorder else "+stream"
     rows.append((f"{label}{tag}", TimingStats.of(_gather_times(per_call))))
     yields = [y for d in detail for y in d["yield_s"]]
@@ -234,17 +260,21 @@ def run_tests(filename: str, options: Options) -> int:
                                       and torch.cuda.device_count() > 1)
     n_errors = 0
     problem, image0, i_ang0 = load_input(filename, options.scale)
+    sdtype = options.spectrum_dtype
     rows = []
     out = {}
     for requested in methods:
         method, device = resolve_method(requested)
         device = distributed.rank_device(device.type != "cuda")
         label = requested if requested == method else f"{requested}->{method}"
-        pout.write(f"Running {label} on {device}\n")
-        create_image(problem, method, device)  # warmup (builds the kernels)
+        pout.write(f"Running {label} on {device}, spectrum "
+                   f"{options.spectrum}\n")
+        # warmup (builds the kernels)
+        create_image(problem, method, spectrum_dtype=sdtype, device=device)
         with _maybe_profile(options.profile, device) as prof:
             times = _timed(lambda: out.update(
-                r=create_image(problem, method, device)), options.iterations)
+                r=create_image(problem, method, spectrum_dtype=sdtype,
+                               device=device)), options.iterations)
         if prof is not None:
             _print_profile(prof, sum(times), options.iterations)
         stats = TimingStats.of(_gather_times(times, label))
@@ -258,10 +288,12 @@ def run_tests(filename: str, options: Options) -> int:
     if multichip:
         mesh = make_mesh()
         label = f"multichip[{len(mesh)}]"
-        pout.write(f"Running {label} on {[str(d) for d in mesh]}\n")
-        create_image_sharded(problem, mesh)
+        pout.write(f"Running {label} on {[str(d) for d in mesh]}, spectrum "
+                   f"{options.spectrum}\n")
+        create_image_sharded(problem, mesh, spectrum_dtype=sdtype)
         times = _timed(lambda: out.update(
-            r=create_image_sharded(problem, mesh)), options.iterations)
+            r=create_image_sharded(problem, mesh, spectrum_dtype=sdtype)),
+            options.iterations)
         stats = TimingStats.of(_gather_times(times, label))
         rows.append((label, stats))
         n_errors += _check(image0, i_ang0, *out["r"], stats, options)

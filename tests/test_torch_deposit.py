@@ -139,7 +139,9 @@ def test_deposit_wrapper_checks_inputs():
             torch.from_numpy(ok), beam, 1, 1.0)
     image, i_ang = _accumulators(beam, Iv.shape[1])
     bad = [
-        (args[0].float(),) + args[1:] + (image, i_ang),
+        # f64 and f32 spectra are taken (the two instantiations); no other
+        (args[0].half(),) + args[1:] + (image, i_ang),
+        (args[0].to(torch.bfloat16),) + args[1:] + (image, i_ang),
         args[:1] + (args[1][:3],) + args[2:] + (image, i_ang),
         args[:1] + (tuple(c.double() for c in args[1]),) + args[2:]
         + (image, i_ang),

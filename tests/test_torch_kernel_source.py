@@ -54,6 +54,10 @@ static dim3 blockIdx, threadIdx, blockDim, gridDim;
 struct float2 { float x, y; };
 struct double2 { double x, y; };
 inline double2 make_double2(double x, double y) { return {x, y}; }
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline unsigned __float_as_uint(float v) { unsigned u; std::memcpy(&u, &v, 4); return u; }
+inline float __uint_as_float(unsigned u) { float v; std::memcpy(&v, &u, 4); return v; }
+inline float __int_as_float(int i) { float v; std::memcpy(&v, &i, 4); return v; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
 typedef void* cudaStream_t;
@@ -353,6 +357,78 @@ def test_amplify_source_flags(host_lib, B):
     assert torch.equal(got.isnan(), want.isnan())
     ok = ~want.isnan()
     torch.testing.assert_close(got[ok], want[ok], rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("nseg,spread,K,scale", [
+    (2, None, 82, 1.0), (2, 40, 82, 30.0), (1, None, 82, 1.0),
+    (2, None, 7, 1.0), (3, None, 10, 300.0), (0, None, 82, 1.0)],
+    ids=["shipped", "coherent-large-gain", "one-segment", "odd-K",
+         "generic-pairs-overflow", "no-segments"])
+def test_amplify_f32_source_equals_twin(host_lib, nseg, spread, K, scale):
+    """B3's f32 instantiation (two-float log-gain, the range-reduced exp,
+    the seed product rounded once from f64): the pair ``(hi, lo)``, the
+    spectrum and the flags equal the twin's bitwise, infinities of a
+    log-gain past f32's exp range included (``scale`` 300)."""
+    f, fv, escaped, ivl, gvl, gv = _seeded_inputs(1024, nseg, spread, K)
+    args = (f, fv, escaped, ivl, (gvl * scale).to(torch.float32), gv)
+    amplify_kernel._check(*args, torch.float32)
+    got, flags, pair = amplify_kernel._launch(host_lib, *args, None,
+                                              log_gain=True,
+                                              dtype=torch.float32)
+    hi, lo = amplify_kernel.log_gain2_plain(*args[3:])
+    assert torch.equal(pair[0], hi) and torch.equal(pair[1], lo)
+    want, want_flags = amplify_kernel.amplify_gain_plain(
+        *args, dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(flags, want_flags)
+    if scale == 300.0:
+        assert got.isinf().any()
+
+
+def test_amplify_f32_source_flags(host_lib):
+    """Both flag bits on the f32 values (a negative and a NaN fv entry),
+    with B not a multiple of 4."""
+    f, fv, escaped, ivl, gvl, gv = _seeded_inputs(1027, 2, None)
+    fv[5] = -0.5
+    fv[11] = float("nan")
+    args = (f, fv, escaped, ivl, gvl, gv)
+    got, flags, _ = amplify_kernel._launch(host_lib, *args, None,
+                                           dtype=torch.float32)
+    want, want_flags = amplify_kernel.amplify_gain_plain(
+        *args, dtype=torch.float32)
+    assert torch.equal(flags, want_flags)
+    assert torch.all(flags[~escaped] & amplify_kernel.FLAG_NAN)
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = ~want.isnan()
+    assert torch.equal(got[ok], want[ok])
+
+
+@pytest.mark.parametrize("method", [1, 2])
+@pytest.mark.parametrize("shape", [
+    dict(nx=60, ny=25, na=19, nb=14, nv=52),
+    dict(nx=118, ny=25, na=50, nb=50, nv=82, seeded=True),
+    dict(nx=9, ny=6, na=7, nb=5, nv=7, full_plane=True),
+], ids=["ase-widths", "seeded-widths", "odd-K-full-plane"])
+def test_deposit_f32_source_equals_twin(host_lib, method, shape):
+    """B2's f32 instantiation: the bins bitwise, the image and I_ang (f32
+    products, f64 sums) within 1e-14 of the twin's, in place on top of
+    what the accumulators held; no NaN from the rays that are not ok."""
+    from raytrace_tpu_torch.ops.binning import bin_indices
+
+    args, beam = _deposit_case(shape, method, 3000, 5)
+    args = (args[0].to(torch.float32),) + args[1:]
+    Iv, coords, ok = args[:3]
+    K = Iv.shape[1]
+    deposit_kernel._check(*args[:4], *_accumulators(beam, K))
+    got = _accumulators(beam, K, 1.0)
+    bins = deposit_kernel._launch(host_lib, *args, *got, None, bins=True)
+    want = _accumulators(beam, K, 1.0)
+    deposit_kernel.bin_deposit_plain(*args, *want)
+    assert torch.equal(bins, bin_indices(coords, ok, beam, method))
+    for g, w in zip(got, want):
+        assert not g.isnan().any()
+        torch.testing.assert_close(g, w, rtol=1e-14, atol=0)
 
 
 def _bisect(X, n, y):

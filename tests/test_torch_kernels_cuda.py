@@ -238,6 +238,79 @@ def test_amplify_kernel_flags(cuda):
     assert torch.equal(got.isnan(), want.isnan())
 
 
+@pytest.mark.parametrize("spread,K", [(None, 82), (40, 82), (None, 7)])
+def test_amplify_f32_kernel_vs_twin(cuda, spread, K):
+    """B3's f32 instantiation on the card: the pair, the spectrum and the
+    flags bitwise equal to the twin's on the card; counted under both
+    ``launch_count`` and ``F32``."""
+    args = _seeded_inputs(65536, spread, cuda, K)
+    before = (amplify_kernel.launch_count, amplify_kernel.F32.launch_count)
+    got, flags = amplify_kernel.amplify_gain(*args, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (amplify_kernel.launch_count, amplify_kernel.F32.launch_count) \
+        == (before[0] + 1, before[1] + 1)
+    _, _, pair = amplify_kernel._launch(
+        cuda_lib.load_library(), *args,
+        torch.cuda.current_stream().cuda_stream, log_gain=True,
+        dtype=torch.float32)
+    hi, lo = amplify_kernel.log_gain2_plain(*args[3:])
+    assert torch.equal(pair[0], hi) and torch.equal(pair[1], lo)
+    want, want_flags = amplify_kernel.amplify_gain_plain(
+        *args, dtype=torch.float32)
+    assert torch.equal(got, want) and torch.equal(flags, want_flags)
+
+
+@pytest.mark.parametrize("method", [1, 2])
+def test_deposit_f32_kernel_vs_twin(cuda, method):
+    """B2's f32 instantiation on the card: image and I_ang within 1e-12 of
+    the twin's, counted under ``F32``."""
+    from raytrace_tpu_torch.models.problem import prepare_beam
+    from raytrace_tpu_torch.testing import deposit_inputs
+
+    p = synthetic_problem(nx=118, ny=25, na=50, nb=50, nv=82, seeded=True)
+    Iv, coords, ok = deposit_inputs(p.euv_beam, 65536, seed=2)
+    beam = prepare_beam(p.euv_beam, cuda)
+    args = (torch.as_tensor(Iv, device=cuda).to(torch.float32),
+            tuple(torch.as_tensor(c, device=cuda) for c in coords),
+            torch.as_tensor(ok, device=cuda), beam, method, 0.37)
+    C, A = p.euv_beam.nx * p.euv_beam.ny, p.euv_beam.na * p.euv_beam.nb
+    f64 = dict(dtype=torch.float64, device=cuda)
+    got = (torch.zeros((C, 82), **f64), torch.zeros((A, 1), **f64))
+    want = (torch.zeros((C, 82), **f64), torch.zeros((A, 1), **f64))
+    before = deposit_kernel.F32.launch_count
+    deposit_kernel.bin_deposit(*args, *got)
+    deposit_kernel.bin_deposit_plain(*args, *want)
+    torch.cuda.synchronize()
+    assert deposit_kernel.F32.launch_count == before + 1
+    for g, w in zip(got, want):
+        assert not g.isnan().any()
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-12
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_create_image_f32_on_card(cuda, seeded):
+    """The f32 call on the card: the kernels' f32 instantiations launched
+    (seeded: B3's), within 1e-12 of the twins on the card in f32 and
+    within 1e-5 of the f64 call."""
+    from raytrace_tpu_torch import create_image
+
+    def call(method):
+        return create_image(synthetic_problem(seeded=seeded), method,
+                            spectrum_dtype=torch.float32, device=cuda)
+
+    before = (amplify_kernel.F32.launch_count,
+              deposit_kernel.F32.launch_count)
+    img, ang = call("cuda")
+    assert deposit_kernel.F32.launch_count > before[1]
+    assert (amplify_kernel.F32.launch_count > before[0]) == seeded
+    img_t, ang_t = call("cpu")
+    img64, ang64 = create_image(synthetic_problem(seeded=seeded), "cuda",
+                                device=cuda)
+    for a, b, tol in ((img, img_t, 1e-12), (ang, ang_t, 1e-12),
+                      (img, img64, 1e-5), (ang, ang64, 1e-5)):
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) <= tol
+
+
 def test_find_index_kernel_vs_searchsorted(cuda):
     """B1's interval search against the twin's clamped searchsorted on a
     uniform grid and three warped ones, grid lines, their neighbours, NaN
@@ -411,7 +484,7 @@ def _eager(p, device):
     is held against."""
     from raytrace_tpu_torch.models import ray_tracer
 
-    prep = ray_tracer.prepare_pipeline(p, "cuda", device, eager=True)
+    prep = ray_tracer.prepare_pipeline(p, "cuda", device=device, eager=True)
     return ray_tracer._finalize_call(p, prep, prep.pipeline(*prep.operands),
                                      "unused.dat")
 
@@ -434,7 +507,7 @@ def test_graph_replay_matches_eager(cuda, seeded):
 
     source = functools.partial(synthetic_problem, seeded=seeded)
     units = perturbed_problems(source, 3, salt=7)
-    prep = ray_tracer.prepare_pipeline(units[0], "cuda", cuda)
+    prep = ray_tracer.prepare_pipeline(units[0], "cuda", device=cuda)
     assert isinstance(prep.pipeline, ray_tracer._GraphPipeline)
     for u, w in zip(units, [_eager(u, cuda) for u in
                             perturbed_problems(source, 3, salt=7)]):
@@ -443,7 +516,7 @@ def test_graph_replay_matches_eager(cuda, seeded):
         assert (trace_kernel.launch_count - before
                 >= prep.cfg["launches"]["trace"] > 0)
     graphs = ray_tracer.prepare_pipeline(units[0], "cuda",
-                                         cuda).pipeline.graphs
+                                         device=cuda).pipeline.graphs
     assert len(graphs) == 1 and graphs[0].nodes["kernel"] > 0
     assert not graphs[0].in_flight
 
@@ -460,7 +533,8 @@ def test_two_stream_slots_replayed_back_to_back(cuda):
     source = functools.partial(synthetic_problem, seeded=True)
     want = [_eager(u, cuda) for u in perturbed_problems(source, 2, salt=9)]
     units = perturbed_problems(source, 2, salt=9)
-    preps = [ray_tracer.prepare_pipeline(u, "cuda", cuda) for u in units]
+    preps = [ray_tracer.prepare_pipeline(u, "cuda", device=cuda)
+             for u in units]
     outs = [prep.pipeline(*prep.operands) for prep in preps]
     assert outs[0].graph is not outs[1].graph
     assert outs[0].graph.ctr.data_ptr() != outs[1].graph.ctr.data_ptr()
@@ -504,7 +578,8 @@ def test_graph_cache_reserves_its_pools(cuda):
     for name in ("golden_seed.dat", "golden_ase.dat"):
         p = load_input(os.path.join(fixtures, name))[0]
         create_image(p, "cuda", device=cuda)
-        graphs = ray_tracer.prepare_pipeline(p, "cuda", cuda).pipeline.graphs
+        graphs = ray_tracer.prepare_pipeline(p, "cuda",
+                                             device=cuda).pipeline.graphs
         assert len(graphs) == 1 and graphs[0].pool_bytes > 0
         reserved.append(torch.cuda.memory_reserved(cuda))
         over = reserved[-1] - ray_tracer.graph_pool_bytes(cuda)

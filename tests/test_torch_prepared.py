@@ -204,7 +204,8 @@ def test_launches_follow_the_config():
     """Per call on the kernels: one B1 and one B2 a chunk, and B3 a chunk
     unless the emissivity amplify runs; none for the plain twins."""
     prep = prepare_pipeline(synthetic_problem(**SMALL), "cpu", chunk_size=9)
-    assert prep.cfg["launches"] == dict(trace=0, bin_deposit=0, amplify=0)
+    assert prep.cfg["launches"] == dict(trace=0, bin_deposit=0, amplify=0,
+                                        bin_deposit_f32=0, amplify_f32=0)
     assert not prep.cfg["graph"]
 
 
