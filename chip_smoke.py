@@ -36,11 +36,14 @@ fails (non-zero exit, no result line) if any phase fails:
    alone (its ``library_ms``), with the mean run of equal image bins and
    the atomics it issues; the f32 instantiations (the f32 spectrum,
    ``raytrace_tpu``'s default): B3-f32 on the seeded chunk (the pair
-   ``(hi, lo)``, the spectrum and the flags bitwise equal to the twin's)
-   and B2-f32 at the real inputs of both shapes (B3-f32's spectra, the
-   f32 emissivity amplify's), bins bitwise, image and I_ang within 1e-12,
-   each timed with its twin and its bound, B2-f32 in turns with
-   ``index_add_`` of the f32 image alone, and the ASE call's emissivity
+   ``(hi, lo)``, the spectrum and the flags bitwise equal to the twin's),
+   its bound from its own operations beside the same arithmetic's with
+   Dekker's split product (the twin's form), and B2-f32 at the real inputs
+   of both shapes (B3-f32's spectra, the f32 emissivity amplify's), bins
+   bitwise, image and I_ang within 1e-12, each timed with its twin and its
+   bound, B2-f32 in turns with ``index_add_`` of the f32 image alone, with
+   the f64 atomics it issues a chunk, the distinct image bins per 32-,
+   256- and 1024-ray tile and the runs, and the ASE call's emissivity
    amplify in f64 and in f32; probe P1 at K 64 (bitwise);
 4. with every launch count at 0: ``create_image`` on both golden fixtures
    (``check_ans`` at 5e-6 and a two-sided relative L2 below 1e-5 against
@@ -694,11 +697,16 @@ def phase_deposit(results, shapes):
                                   max_rel_err=dep_worst[1])
 
 
-#: B3's f32 operations, counted from csrc/amplify.cu: per element and
-#: (segment, sub-length) term (the split product 13, the two-sum 6, the
-#: low part 2) and per element (the exp 31, the seed product and the
-#: flags 6), beside one f64 product per element
-B3_F32_OPS = dict(term=21, element=37)
+#: B3-f32's f32 operations, counted from csrc/amplify.cu: per element and
+#: (segment, sub-length) term (the product 1, its error by one fused
+#: multiply-add 2, the two-sum 6, the low part 2) and per element (the exp
+#: 31, the seed product's rounding and mask 2, the product 1, the flags'
+#: compare 1), beside one f64 product per element
+B3_F32_OPS = dict(term=11, element=35)
+#: the same arithmetic with the product's error by Dekker's split product
+#: (13 operations, the twin's and the JAX package's form): the yardstick of
+#: a kernel that issues no fused multiply-add
+B3_F32_OPS_DEKKER = dict(term=21, element=37)
 
 
 def phase_f32_kernels(results, shapes):
@@ -715,6 +723,7 @@ def phase_f32_kernels(results, shapes):
     from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
                                         deposit_kernel, spectrum)
     from raytrace_tpu_torch.testing import seed_factors
+    from raytrace_tpu_torch.tools.f32_ab import bin_stats
 
     f32 = torch.float32
     cell = shapes["seed_chunk"]
@@ -747,14 +756,30 @@ def phase_f32_kernels(results, shapes):
     b_ms, b_by = bound(nbytes, f32_ops=B * K * (B3_F32_OPS["term"] * T
                                                 + B3_F32_OPS["element"]),
                        f64_ops=B * K)
+    d_ms, d_by = bound(nbytes, f32_ops=B * K * (
+        B3_F32_OPS_DEKKER["term"] * T + B3_F32_OPS_DEKKER["element"]),
+        f64_ops=B * K)
+    # the terms' products: where the fused error equals Dekker's
+    p_min = float("inf")
+    for t in range(T):
+        s_, u_ = divmod(t, res.ivl.shape[2])
+        prod = (res.gvl[:, s_, u_, None]
+                * gv[s_][res.ivl[:, s_, u_].long()]).abs()
+        p_min = min(p_min, torch.where(prod > 0, prod, float("inf"))
+                    .min().item())
     print(f"amplify f32 seeded chunk B={B} K={K} T={T}: pair, spectrum and "
           f"flags bitwise equal to the twin's (log-gains {hi.min().item():.3f}"
-          f" to {hi.max().item():.3f}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by {b_by}, "
-          f"{b_ms / ms:.3f} of it reached", flush=True)
+          f" to {hi.max().item():.3f}; smallest nonzero |gvl gv| "
+          f"{p_min:.3e}, 2^-100 = {2.0 ** -100:.3e}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by "
+          f"{b_by}, {b_ms / ms:.3f} of it reached; with Dekker's product "
+          f"{d_ms:.4f} ms by {d_by}, {d_ms / ms:.3f} of it", flush=True)
     record["amplify_f32_chunk"] = dict(B=B, K=K, bitwise=same, ms=ms,
                                        plain_ms=plain_ms, bytes=nbytes,
-                                       bound_ms=b_ms, bound_by=b_by)
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       dekker_bound_ms=d_ms,
+                                       dekker_bound_by=d_by,
+                                       smallest_product=p_min)
     results["amplify_f32"] = dict(max_abs_err=(got - want).abs().max().item(),
                                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=None)
@@ -790,6 +815,7 @@ def phase_f32_kernels(results, shapes):
         bins, e = deposit_check(f"f32 real {name}", (Iv, coords, ok, scale),
                                 beam, method, C, A)
         worst = tuple(map(max, worst, e))
+        stats = bin_stats(bins, K)
         f64 = dict(dtype=torch.float64, device=DEV)
         image, i_ang = torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64)
         lib_out = torch.zeros((C + 1, K), dtype=f32, device=DEV)
@@ -814,12 +840,20 @@ def phase_f32_kernels(results, shapes):
         ms, lib_ms = mean(t["kernel"]), mean(t["library"])
         print(f"deposit f32 real inputs {name} B={B} K={K} C={C}: bins "
               f"bitwise, max rel {e[1]:.2e} against the twin; image rays "
-              f"{n_img}, I_ang rays {n_ang}; B2-f32 {t['kernel']} ms, "
+              f"{n_img}, I_ang rays {n_ang}; f64 atomics "
+              f"{stats['atomics']} (with each tile's bins merged: "
+              f"{stats['atomics_merged']}); distinct image bins (runs) per "
+              f"tile of 32 {stats['distinct_per_32']:.2f} "
+              f"({stats['runs_per_32']:.2f}), 256 "
+              f"{stats['distinct_per_256']:.2f} ({stats['runs_per_256']:.2f})"
+              f", 1024 {stats['distinct_per_1024']:.2f} "
+              f"({stats['runs_per_1024']:.2f}); mean run "
+              f"{stats['mean_run']:.2f}; B2-f32 {t['kernel']} ms, "
               f"index_add_ of the f32 image alone {t['library']} ms, plain "
               f"twin {plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms "
               f"by {b_by}, {b_ms / ms:.3f} of it reached", flush=True)
         record[f"deposit_f32_{name}"] = dict(
-            B=B, K=K, C=C, image_rays=n_img, iang_rays=n_ang,
+            B=B, K=K, C=C, image_rays=n_img, iang_rays=n_ang, bins=stats,
             ms_readings=t["kernel"], library_ms_readings=t["library"], ms=ms,
             library_ms=lib_ms, plain_ms=plain_ms, bytes=nbytes,
             bound_ms=b_ms, bound_by=b_by)
@@ -1087,12 +1121,13 @@ def production_loops(nprocs=2, extra=()):
     return esums, outs
 
 
-#: the kernels' names in a profile (B2's by its spectrum type: the f64
-#: instantiation's name is ``bin_deposit_kernel<double, V>``)
+#: the kernels' names in a profile (B2's f64 kernel is
+#: ``bin_deposit_kernel<double, V>``, its f32 kernel
+#: ``bin_deposit_f32_kernel<S>``)
 PROFILE_TAGS = (("trace", "trace_kernel"),
                 ("bin_deposit", "bin_deposit_kernel"),
                 ("amplify", "amplify_seeded_kernel"),
-                ("bin_deposit_f32", "bin_deposit_kernel<float"),
+                ("bin_deposit_f32", "bin_deposit_f32_kernel"),
                 ("amplify_f32", "amplify_seeded_f32_kernel"))
 
 

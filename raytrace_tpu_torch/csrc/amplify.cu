@@ -51,23 +51,49 @@
 //
 // The f32 instantiation (rt_amplify_seeded_f32) is the TPU kernel's own
 // arithmetic, raytrace_tpu's default spectrum: the log-gain is an
-// unevaluated two-float pair (hi, lo) of f32 values, each term
-// gvl * gv an error-free Dekker product (factors split at a mask of 12 high
-// significand bits) added with Knuth's error-free two-sum,
+// unevaluated two-float pair (hi, lo) of f32 values, each term gvl * gv an
+// error-free product added with Knuth's error-free two-sum,
 //
-//   p, pe = split_prod(gvl[b, t], gv[seg(t)][ivl[b, t], k])
+//   p = gvl[b, t] * gv[seg(t)][ivl[b, t], k];  pe = fma(gvl, gv, -p)
 //   hi, e = two_sum(hi, p);   lo = lo + (e + pe)
 //   Iv[b, k] = f32(escaped[b] ? 0 : f[b] * fv[k]) * exp_fast2(hi, lo)
 //
 // with the seed product formed in f64 and rounded once, as raytrace_tpu
 // rounds its f64 entry seed, and exp_fast2 the range-reduced polynomial exp
 // of the pair (raytrace_tpu/ops/spectrum.py:70-88). Only f32 arithmetic
-// past the seed product: the same values as the plain twin
-// (raytrace_tpu_torch/ops/twofloat.py) bitwise, since -fmad=false keeps
-// the split and the two-sum error-free. Per element it writes 4 bytes in
-// place of 8: about 0.40 GB, 0.12 ms at 3.35 TB/s, for a 2^20-ray chunk at
-// K 82 and T 6; its f32 operations (about 25 per term and 30 for the exp,
-// per element) are of the same order.
+// past the seed product.
+//
+// The product's error is one fused multiply-add, __fmaf_rn(g, r, -p): the
+// exact g r - p rounded once, which is the exact error itself wherever it
+// is representable. The plain twin (raytrace_tpu_torch/ops/twofloat.py)
+// forms it as raytrace_tpu does, by Dekker's product of factors split at a
+// mask of 12 high significand bits; the two are bitwise equal wherever p is
+// finite and |p| >= 2^-100, and where p is an exact zero
+// (tests/test_torch_f32.py holds this, and lists the pairs near f32's
+// underflow where they differ). On a traced seeded chunk of the main path
+// the smallest nonzero |gvl * gv| is 1.4e-2 (chip_smoke.py's phase 3
+// prints it), far inside that range, and phase 3 holds the kernel bitwise
+// equal to the twin there. The explicit
+// intrinsic is the kernel's only fused operation: the library stays
+// compiled with -fmad=false, so the two-sum, the range reduction and the
+// Horner polynomial round each operation on its own, as the twin does.
+//
+// What bounds it on an H100: issued f32 operations. Per element and term it
+// does 11 (the product, its error as a fused multiply-add counted as two,
+// the two-sum's 6 and the low part's 2); per element 35 for the exp, the
+// seed product's rounding and mask, the product and the flags: 101 at a
+// term count T of 6, 8.7e9 for a 2^20-ray chunk at K 82, 0.13 ms at 67
+// TFLOP/s. Its bytes (4 a spectrum element, 8 T a ray for the cell ids and
+// path gains) are about 0.40 GB, 0.12 ms at 3.35 TB/s.
+//
+// Design of the f32 instantiation:
+// * a thread takes kUnitsF32 consecutive units of V frequencies (V = 2,
+//   float2 rows, where K is even) of one ray, so the per-ray loads (cell
+//   ids, path gains, seed factor, escape flag) and the row address of each
+//   term serve 2 kUnitsF32 elements; at K 82 a ray is 14 threads (the
+//   last with two units) and a block 18 rays;
+// * the flags test one compare an element (!(Iv >= 0): negative or NaN)
+//   and take the two bits apart only on a ray where it fired.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,6 +179,8 @@ constexpr float kLn2Hi = 0x1.62e4p-1f;     // ln2's high part, 12 zero bits
 constexpr float kLn2Lo = 0x1.7f7d1cp-20f;  // ln2 - kLn2Hi in f32
 // |n| past this scales to 0 or inf, as the true result does
 constexpr float kNMax = 252.0f;
+// units of V frequencies a thread of the f32 kernel takes
+constexpr int kUnitsF32 = 3;
 
 // Knuth's two-sum: a + b = s + err exactly
 __device__ __forceinline__ void two_sum(float a, float b, float& s,
@@ -160,22 +188,6 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s,
   s = a + b;
   const float bb = s - a;
   err = (a - (s - bb)) + (b - bb);
-}
-
-// the 12 high significand bits of a (sign and exponent kept)
-__device__ __forceinline__ float split_hi(float a) {
-  return __uint_as_float(__float_as_uint(a) & 0xFFFFF000u);
-}
-
-// Dekker's product: a * b = p + err exactly
-__device__ __forceinline__ void split_prod(float a, float b, float& p,
-                                           float& err) {
-  const float ah = split_hi(a);
-  const float al = a - ah;
-  const float bh = split_hi(b);
-  const float bl = b - bh;
-  p = a * b;
-  err = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
 }
 
 // 2^n for n in [-126, 127]
@@ -203,7 +215,9 @@ __device__ __forceinline__ float exp_fast2(float hi, float lo) {
   return (e * pow2(n1)) * pow2(ni - n1);
 }
 
-template <int NSEG, int NSUB, int V>
+// U units of V consecutive frequencies a thread (threadIdx.x), one ray a
+// thread row (threadIdx.y); NSEG, NSUB as in amplify_seeded_kernel
+template <int NSEG, int NSUB, int V, int U>
 __global__ void __launch_bounds__(kThreads)
 amplify_seeded_f32_kernel(const double* __restrict__ f,
                           const double* __restrict__ fv,
@@ -214,72 +228,96 @@ amplify_seeded_f32_kernel(const double* __restrict__ f,
                           int nseg_rt, int nsub_rt, int cells, int K,
                           float* __restrict__ Iv, uint8_t* __restrict__ flags,
                           float* __restrict__ log_gain) {
+  constexpr int E = U * V;  // elements a thread
   const int64_t b = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
   if (b >= B) return;
-  const int k = (int)threadIdx.x * V;
+  const int units = K / V;
+  const int u0 = (int)threadIdx.x * U;
   const int nseg = NSEG > 0 ? NSEG : nseg_rt;
   const int nsub = NSUB > 0 ? NSUB : nsub_rt;
   const int64_t T = (int64_t)nseg * nsub;
   const int32_t* ivl_b = ivl + b * T;
   const float* gvl_b = gvl + b * T;
-
-  float hi[V], lo[V];
+  bool live[U];  // the thread's units inside the spectrum
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    hi[v] = 0.0f;
-    lo[v] = 0.0f;
+  for (int q = 0; q < U; ++q) live[q] = u0 + q < units;
+
+  float hi[E], lo[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    hi[e] = 0.0f;
+    lo[e] = 0.0f;
   }
 #pragma unroll
   for (int s = 0; s < (NSEG > 0 ? NSEG : nseg); ++s) {
-    const float* gv_s = gv + (int64_t)s * cells * K + k;
+    const float* gv_s = gv + (int64_t)s * cells * K + u0 * V;
 #pragma unroll
     for (int u = 0; u < (NSUB > 0 ? NSUB : nsub); ++u) {
       const int t = s * nsub + u;
       const float* row = gv_s + (int64_t)__ldg(ivl_b + t) * K;
       const float g = __ldg(gvl_b + t);
-      float r[V];
-      if constexpr (V == 2) {
-        const float2 rr = __ldg(reinterpret_cast<const float2*>(row));
-        r[0] = rr.x;
-        r[1] = rr.y;
-      } else {
-        r[0] = __ldg(row);
+      float r[E];
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        if constexpr (V == 2) {
+          float2 rr = make_float2(0.0f, 0.0f);
+          if (live[q]) rr = __ldg(reinterpret_cast<const float2*>(row) + q);
+          r[2 * q] = rr.x;
+          r[2 * q + 1] = rr.y;
+        } else {
+          r[q] = live[q] ? __ldg(row + q) : 0.0f;
+        }
       }
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        float p, pe, e;
-        split_prod(g, r[v], p, pe);
-        two_sum(hi[v], p, hi[v], e);
-        lo[v] = lo[v] + (e + pe);
+      for (int e = 0; e < E; ++e) {
+        const float p = g * r[e];
+        const float pe = __fmaf_rn(g, r[e], -p);
+        float x;
+        two_sum(hi[e], p, hi[e], x);
+        lo[e] = lo[e] + (x + pe);
       }
     }
   }
 
   const bool esc = __ldg(escaped + b) != 0;
   const double fb = __ldg(f + b);
-  float out[V];
-  unsigned bits = 0;
+  const int k0 = u0 * V;
+  float out[E];
+  bool bad = false;
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const float iv0 = esc ? 0.0f : (float)(fb * __ldg(fv + k + v));
-    out[v] = iv0 * exp_fast2(hi[v], lo[v]);
-    bits |= out[v] < 0.0f ? 1u : 0u;
-    bits |= out[v] != out[v] ? 2u : 0u;
+  for (int e = 0; e < E; ++e) {
+    if (!live[e / V]) continue;
+    const float iv0 = esc ? 0.0f : (float)(fb * __ldg(fv + k0 + e));
+    out[e] = iv0 * exp_fast2(hi[e], lo[e]);
+    bad |= !(out[e] >= 0.0f);
   }
-  float* dst = Iv + b * K + k;
-  if constexpr (V == 2) {
-    __stcs(reinterpret_cast<float2*>(dst), make_float2(out[0], out[1]));
-  } else {
-    __stcs(dst, out[0]);
+  float* dst = Iv + b * K + k0;
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    if (!live[q]) continue;
+    if constexpr (V == 2) {
+      __stcs(reinterpret_cast<float2*>(dst) + q,
+             make_float2(out[2 * q], out[2 * q + 1]));
+    } else {
+      __stcs(dst + q, out[q]);
+    }
   }
   if (log_gain != nullptr) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      log_gain[b * K + k + v] = hi[v];
-      log_gain[B * K + b * K + k + v] = lo[v];
+    for (int e = 0; e < E; ++e) {
+      if (!live[e / V]) continue;
+      log_gain[b * K + k0 + e] = hi[e];
+      log_gain[B * K + b * K + k0 + e] = lo[e];
     }
   }
-  if (bits != 0) {
+  if (bad) {
+    unsigned bits = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (!live[e / V]) continue;
+      bits |= out[e] < 0.0f ? 1u : 0u;
+      bits |= out[e] != out[e] ? 2u : 0u;
+    }
     unsigned* word = reinterpret_cast<unsigned*>(flags + (b & ~(int64_t)3));
     atomicOr(word, bits << (8 * (unsigned)(b & 3)));
   }
@@ -290,9 +328,10 @@ void launch_f32(const double* f, const double* fv, const uint8_t* escaped,
                 const int32_t* ivl, const float* gvl, const float* gv,
                 int64_t B, int nseg, int nsub, int cells, int K, float* Iv,
                 uint8_t* flags, float* log_gain, cudaStream_t stream) {
-  const dim3 threads(K / V, kThreads / (K / V));
+  const int per_ray = (K / V + kUnitsF32 - 1) / kUnitsF32;
+  const dim3 threads(per_ray, kThreads / per_ray);
   const int64_t blocks = (B + threads.y - 1) / threads.y;
-  amplify_seeded_f32_kernel<NSEG, NSUB, V>
+  amplify_seeded_f32_kernel<NSEG, NSUB, V, kUnitsF32>
       <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
           f, fv, escaped, ivl, gvl, gv, B, nseg, nsub, cells, K, Iv, flags,
           log_gain);

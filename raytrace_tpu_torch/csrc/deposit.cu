@@ -50,14 +50,40 @@
 // Under atomics the summation order changes from run to run, so results
 // differ between runs at about 1e-15 relative. Compiled with -fmad=false.
 //
-// The f32 instantiation (rt_bin_deposit_f32) deposits f32 spectra, the
+// The f32 kernel (rt_bin_deposit_f32) deposits f32 spectra, the
 // contribution raytrace_tpu's default spectrum gives its kernel
 // (raytrace_tpu/ops/binning.py:129-154): each product Iv * f32(scale) and
 // Iv * f32(2 dv) is formed in f32, as there, and then added in f64 into the
 // same f64 accumulators (the TPU's per-chunk f32 partial sums are an
 // artefact of its MXU; the port keeps the reference's f64 accumulation).
 // The spectra read halves: for the seeded 2^20-ray chunk about 0.36 GB,
-// 0.11 ms at 3.35 TB/s.
+// 0.11 ms at 3.35 TB/s. Its image atomics cost no measurable time (the f64
+// walk above with its image atomics turned into plain stores ran as fast),
+// while its per-ray I_ang butterflies and the second, 9-lane slot at K 82
+// did; so it has a design of its own (bin_deposit_f32_kernel):
+// * a block per tile of kTileRays consecutive rays: the tile's spectra,
+//   one contiguous [n, K] f32 span of Iv, are staged in shared memory by
+//   16-byte cp.async copies from the span's first 16-byte boundary on, the
+//   ragged head and tail as single floats (a chunk's Iv may be a view at
+//   any 4-byte offset: the staged copy keeps the source's 16-byte phase);
+//   many small blocks resident at once hide each other's latency;
+// * while the copies fly, a thread per ray takes its bins (ray_bins, as
+//   above) and writes its key (image bin, ray in the tile);
+// * then the block's first warp sums I_ang, a thread per ray (its staged
+//   row's products with f32(2 dv) over k in f64, one atomic a ray; no warp
+//   butterfly: a row's walk starts at the lane's offset where K is even,
+//   so the 32 lanes' reads fall in distinct banks), while its second warp
+//   walks the image: the tile's keys in order, one frequency a lane and
+//   slot (one pass over K: three slots at K 82, no 9-lane second slot), one
+//   f64 atomicAdd per (bin, k) where the bin changes and at the tile's
+//   end: one atomic per run of equal bins, as above. On an H100 the two
+//   warps in parallel took 11% less time than one warp doing both, and
+//   merging equal bins across the tile (its keys sorted by a bitonic
+//   network first) saved 2.5% of a seeded chunk's atomics and cost 6% of
+//   the time (raytrace_tpu_torch/tools/f32_ab.py: tile32x32, sorted);
+// * every loop over a tile is strided by blockDim.x, with barriers between
+//   the phases, so a one-thread block runs the whole tile (the host test's
+//   shim runs a block that shares memory as one thread).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,7 +177,6 @@ __device__ __forceinline__ void ray_bins(const DepositArgs& A, int64_t b,
 // the pair type of a spectrum element type
 template <typename T> struct Pair;
 template <> struct Pair<double> { using type = double2; };
-template <> struct Pair<float> { using type = float2; };
 
 // T: the spectra's element type (products with scale and 2 dv in T, sums in
 // f64); V: frequencies per lane and load (2: pairs, K even)
@@ -274,6 +299,222 @@ int bin_deposit(const float* cx, const float* cy, const float* ca,
   return (int)cudaGetLastError();
 }
 
+// ---- the f32 kernel: a block per tile, staged in shared memory ----------
+
+// rays of a tile (a power of two; fewer where K is wide) and threads of a
+// block: a warp for I_ang, a warp for the image
+constexpr int kTileRays = 32;
+constexpr int kTileThreads = 64;
+// a block's shared memory at most
+constexpr int kBlockBytes = 96 * 1024;
+// rays whose rows a warp loads before it adds any of them
+constexpr int kWalkBatch = 4;
+constexpr unsigned long long kNoBin = ~0ull;
+
+// one 16-byte copy from device to shared memory without registers
+// (cp.async); both addresses 16-byte aligned
+__device__ __forceinline__ void stage16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+
+// wait for this thread's stage16 copies
+__device__ __forceinline__ void stage_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+__host__ __device__ __forceinline__ int64_t align16(int64_t n) {
+  return (n + 15) & ~(int64_t)15;
+}
+
+// a block's shared memory for a tile of R rays at K: the keys [R] u64
+// (image bin, ray), the I_ang bins [R] i32, the weights f32(2 dv) [K], the staged rows
+// [R K] f32 after up to 3 floats of phase; each part 16-byte aligned
+__host__ __device__ __forceinline__ int64_t block_bytes(int R, int K) {
+  return align16(8 * (int64_t)R) + align16(4 * (int64_t)R)
+         + align16(4 * (int64_t)K) + 4 * ((int64_t)R * K + 3);
+}
+
+// S: frequency slots a lane carries through one walk over the tile's keys
+template <int S>
+__global__ void __launch_bounds__(kTileThreads)
+bin_deposit_f32_kernel(DepositArgs A, int R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = A.K;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+  int* angb = reinterpret_cast<int*>(smem + align16(8 * (int64_t)R));
+  float* w = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(angb)
+                                      + align16(4 * (int64_t)R));
+  float* rows = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(w)
+                                         + align16(4 * (int64_t)K));
+  const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
+  const int64_t t0 = (int64_t)blockIdx.x * R;
+  const int n = A.B - t0 < (int64_t)R ? (int)(A.B - t0) : R;
+
+  // stage the tile's spectra [n, K], a contiguous span of Iv: src + i
+  // lands at row0 + i, both of the same 16-byte phase
+  const float* src = static_cast<const float*>(A.Iv) + t0 * K;
+  const int phase = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  float* row0 = rows + phase;
+  const int total = n * K;
+  const int lead = (4 - phase) & 3;
+  const int head = lead < total ? lead : total;
+  const int body = (total - head) >> 2;
+  for (int i = tid; i < head; i += nt) row0[i] = __ldg(src + i);
+  for (int v = tid; v < body; v += nt) {
+    stage16(row0 + head + 4 * v, src + head + 4 * v);
+  }
+  for (int i = head + 4 * body + tid; i < total; i += nt) {
+    row0[i] = __ldg(src + i);
+  }
+  for (int k = tid; k < K; k += nt) w[k] = (float)(2.0 * __ldg(A.dv + k));
+
+  // each ray's bins while the copies fly; its key (image bin, ray in the
+  // tile; kNoBin without an image bin)
+  for (int r = tid; r < R; r += nt) {
+    int img = -1, ang = -1;
+    if (r < n) {
+      ray_bins(A, t0 + r, img, ang);
+      if (A.bins != nullptr) {
+        A.bins[2 * (t0 + r)] = img;
+        A.bins[2 * (t0 + r) + 1] = ang;
+      }
+    }
+    keys[r] = img >= 0 ? ((unsigned long long)(unsigned)img << 32)
+                             | (unsigned)r
+                       : kNoBin;
+    angb[r] = ang;
+  }
+  stage_wait();
+  __syncthreads();
+
+  // with two warps or more, the first sums I_ang and the others walk the
+  // image at the same time; a single warp (or thread) does both in turn
+  const int lanes = nt < (int)warpSize ? nt : (int)warpSize;
+  const int warps = nt / lanes, warp = tid / lanes, lane = tid % lanes;
+  const bool split = warps > 1;
+
+  // I_ang: a thread per ray, its row's products with w summed in f64
+  if (!split || warp == 0) {
+    const int step = split ? lanes : nt;
+    for (int r = split ? lane : tid; r < n; r += step) {
+      const int ang = angb[r];
+      if (ang < 0) continue;
+      const float* row = row0 + (int64_t)r * K;
+      const int start = (K & 1) ? 0 : (r % lanes) % K;
+      double sum = 0.0;
+      for (int k = start; k < K; ++k) sum = sum + (double)(row[k] * w[k]);
+      for (int k = 0; k < start; ++k) sum = sum + (double)(row[k] * w[k]);
+      atomicAdd(A.iang + ang, sum);
+    }
+  }
+  if (split && warp == 0) return;
+
+  // the image: each walking warp takes its share of the tile's keys in
+  // order, a lane per frequency and slot, one atomic per (bin, k) where the
+  // bin changes and at the share's end
+  const int walkers = split ? warps - 1 : warps;
+  const int share = (R + walkers - 1) / walkers;
+  const int q0 = (split ? warp - 1 : warp) * share;
+  const int q1 = q0 + share < R ? q0 + share : R;
+  const float scale = (float)A.scale;
+  for (int j0 = 0; j0 * lanes < K; j0 += S) {
+    int last = -1;
+    double run[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) run[j] = 0.0;
+    for (int q = q0; q < q1; q += kWalkBatch) {
+      int bin[kWalkBatch];
+      float v[kWalkBatch][S];
+#pragma unroll
+      for (int c = 0; c < kWalkBatch; ++c) {
+        const unsigned long long key = q + c < q1 ? keys[q + c] : kNoBin;
+        bin[c] = key == kNoBin ? -1 : (int)(key >> 32);
+        const float* row = row0 + (int64_t)(unsigned)(key & 0xffffffffu) * K;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          const int k = (j0 + j) * lanes + lane;
+          v[c][j] = bin[c] >= 0 && k < K ? row[k] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kWalkBatch; ++c) {
+        if (bin[c] < 0) continue;
+        if (bin[c] != last) {
+          if (last >= 0) {
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+              const int k = (j0 + j) * lanes + lane;
+              if (k < K) atomicAdd(A.image + (int64_t)last * K + k, run[j]);
+            }
+          }
+          last = bin[c];
+#pragma unroll
+          for (int j = 0; j < S; ++j) run[j] = 0.0;
+        }
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          run[j] = run[j] + (double)(v[c][j] * scale);
+        }
+      }
+    }
+    if (last >= 0) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const int k = (j0 + j) * lanes + lane;
+        if (k < K) atomicAdd(A.image + (int64_t)last * K + k, run[j]);
+      }
+    }
+  }
+}
+
+// the tile's rays for K: kTileRays, halved while a block's shared memory
+// passes kBlockBytes (0 where one ray does not fit)
+int tile_rays(int K) {
+  int R = kTileRays;
+  while (R > 1 && block_bytes(R, K) > kBlockBytes) R >>= 1;
+  return block_bytes(R, K) > kBlockBytes ? 0 : R;
+}
+
+template <int S>
+int launch_f32(const DepositArgs& A, int R, void* stream) {
+  const int64_t blocks = (A.B + R - 1) / R;
+  const int shared = (int)block_bytes(R, A.K);
+  static int opted[64] = {};  // the opt-in above 48 KB, once per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (shared > 48 * 1024 && dev >= 0 && dev < 64 && !opted[dev]) {
+    cudaFuncSetAttribute(bin_deposit_f32_kernel<S>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kBlockBytes);
+    opted[dev] = 1;
+  }
+  bin_deposit_f32_kernel<S><<<(unsigned)blocks, kTileThreads, shared, (cudaStream_t)stream>>>(A, R);
+  return (int)cudaGetLastError();
+}
+
+// the f32 kernel's launch: S = ceil(K / warpSize) slots (up to 4, with
+// more passes over the tile's keys beyond K 128)
+int bin_deposit_f32(const DepositArgs& A, void* stream) {
+  if (A.B <= 0) return (int)cudaGetLastError();
+  const int R = tile_rays(A.K);
+  if (R == 0) return (int)cudaErrorInvalidValue;
+  switch ((A.K + 31) / 32) {
+    case 1: return launch_f32<1>(A, R, stream);
+    case 2: return launch_f32<2>(A, R, stream);
+    case 3: return launch_f32<3>(A, R, stream);
+    default: return launch_f32<4>(A, R, stream);
+  }
+}
+
 }  // namespace
 
 // C entry bound with ctypes by raytrace_tpu_torch/ops/deposit_kernel.py.
@@ -298,8 +539,9 @@ extern "C" int rt_bin_deposit(const float* cx, const float* cy,
                              mirror_y, negate_ab, image, iang, bins, stream);
 }
 
-// The f32 instantiation's C entry: as rt_bin_deposit with Iv [B, K] f32
-// (8-byte aligned with K even where `pairs`).
+// The f32 kernel's C entry: as rt_bin_deposit with Iv [B, K] f32 (4-byte
+// aligned; `pairs` is not read). Returns cudaErrorInvalidValue where K is
+// too wide for a one-ray tile in shared memory.
 extern "C" int rt_bin_deposit_f32(const float* cx, const float* cy,
                                   const float* ca, const float* cb,
                                   const uint8_t* ok, const float* Iv,
@@ -311,7 +553,10 @@ extern "C" int rt_bin_deposit_f32(const float* cx, const float* cy,
                                   const double* dv, double scale,
                                   int mirror_y, int negate_ab, double* image,
                                   double* iang, int32_t* bins, void* stream) {
-  return bin_deposit<float>(cx, cy, ca, cb, ok, Iv, B, K, pairs, gx, nx, dx,
-                            gy, ny, dy, ga, na, da, gb, nb, db, dv, scale,
-                            mirror_y, negate_ab, image, iang, bins, stream);
+  (void)pairs;
+  const DepositArgs A{cx, cy, ca, cb, ok, Iv, B, K,
+                      Axis{gx, nx, dx}, Axis{gy, ny, dy}, Axis{ga, na, da},
+                      Axis{gb, nb, db}, dv, scale, mirror_y, negate_ab,
+                      image, iang, bins};
+  return bin_deposit_f32(A, stream);
 }

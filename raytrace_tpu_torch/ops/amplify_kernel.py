@@ -27,7 +27,11 @@ default spectrum (``spectrum.py:186-193``): the log-gain as a two-float
 pair summed with error-free products and sums (``ops/twofloat.py``), then
 ``Iv = f32(where(escaped, 0, f * fv)) * exp_fast2(hi, lo)``, the seed
 product formed in f64 and rounded once, as ``raytrace_tpu`` rounds its f64
-entry seed; the flags are taken on the f32 spectrum.
+entry seed; the flags are taken on the f32 spectrum. The twin forms each
+product's error by Dekker's split product, as ``raytrace_tpu`` does; the
+kernel by one fused multiply-add, which gives the same bits wherever the
+product is an exact zero or finite with magnitude at least 2^-100
+(``csrc/amplify.cu``).
 
 :func:`amplify_gain` dispatches on the tensors' device: CPU tensors take the
 plain twin :func:`amplify_gain_plain`, CUDA tensors launch the kernel (or

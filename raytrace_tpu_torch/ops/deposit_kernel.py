@@ -18,18 +18,22 @@ results differ between runs at about 1e-15 relative; the bins are the
 twin's bitwise.
 
 The spectra are f64, or f32 where the call runs ``raytrace_tpu``'s default
-f32 spectrum (the kernel's f32 instantiation): then each product
+f32 spectrum (the f32 kernel, ``rt_bin_deposit_f32``): then each product
 ``Iv * f32(scale)`` and ``Iv * f32(2 dv)`` is formed in f32, as
 ``raytrace_tpu/ops/binning.py:145-154`` forms them, and added in f64 into
 the same f64 accumulators. ``raytrace_tpu`` sums a chunk in f32 first
 (its MXU's partial sums); the port keeps the reference's f64 accumulation,
-so the I_ang dot product is summed in f64 too.
+so the I_ang dot product is summed in f64 too. The f32 kernel stages a
+tile of :data:`F32_TILE_RAYS` rays' spectra in shared memory in a block
+of :data:`F32_TILE_THREADS` threads, whose first warp sums each ray's
+I_ang with one thread while the other walks the tile's image bins in one
+pass over K, one atomic per run of equal bins and frequency, as the f64
+kernel issues them.
 
 :func:`bin_deposit` dispatches on the device: CPU tensors take the plain
 twin, CUDA tensors launch the kernel (or raise) on their own card.
-``launch_count`` counts kernel launches of both instantiations,
-``device_launches`` them per device, and :data:`F32` the f32
-instantiation's alone.
+``launch_count`` counts kernel launches of both kernels, ``device_launches``
+them per device, and :data:`F32` the f32 kernel's alone.
 """
 
 from __future__ import annotations
@@ -47,8 +51,12 @@ __all__ = ["bin_deposit", "bin_deposit_plain", "deposit_plain",
 launch_count = 0
 #: the same launches per device
 device_launches: dict = {}
-#: the launches of the f32 instantiation (also counted above)
+#: the launches of the f32 kernel (also counted above)
 F32 = cuda_lib.Launches()
+#: the f32 kernel's tile: its rays (at the shipped K) and its block's
+#: threads, as ``kTileRays`` and ``kTileThreads`` in csrc/deposit.cu
+F32_TILE_RAYS = 32
+F32_TILE_THREADS = 64
 
 
 def deposit_plain(out: torch.Tensor, contrib: torch.Tensor,
@@ -112,8 +120,7 @@ def bin_deposit(Iv, coords, ok, beam: DeviceBeam, method: int,
     """Bin a chunk and deposit it into the call's accumulators, in place:
     kernel B2 for CUDA tensors, the plain twin for CPU tensors.
 
-    ``Iv`` [B, K] f64 or f32 spectra (f32: the kernel's f32
-    instantiation); ``coords`` the four [B] f32 coordinates from
+    ``Iv`` [B, K] f64 or f32 spectra (f32: the f32 kernel); ``coords`` the four [B] f32 coordinates from
     :func:`binning.source_coords` (entry rays for method 1, exit rays for
     method 2, before the negation and mirror); ``ok`` [B] bool, the rays to
     deposit; ``beam`` the EUV beam's grids on the same device; ``image_acc``

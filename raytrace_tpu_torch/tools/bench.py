@@ -3,7 +3,8 @@ NVIDIA GPU, in one JSON artifact.
 
     python -m raytrace_tpu_torch.tools.bench [--ase PATH] [--seed PATH]
                                              [--out PATH] [--cpu]
-                                             [--mesh N]
+                                             [--mesh N] [--eager]
+                                             [--spectrum f64|f32]
 
 Rows, under the root bench's key names so that the two artifacts lie side
 by side:
@@ -117,6 +118,15 @@ of this runs and the keys are as above.
 the calls were CUDA graphs (``prepare_pipeline(eager=True)``), for the two
 to be compared in one run.
 
+``--spectrum=f32`` runs every call with ``spectrum_dtype=float32``, the JAX
+package's default spectrum (the f32 kernels B3-f32 and B2-f32 and the f32
+emissivity amplify; the twins and the goldens in f32 too), and names each
+row ``<row>_f32`` (``seed_small_f32_best_seconds_per_call``, ...). Each f32
+synchronous row also calls its pristine unit in f64 and records the
+relative L2 between the two (``<row>_f32_rel_vs_f64``), gated as
+``<row>_f32_f64_check`` at 1e-5 (``tests/test_golden.py``'s bound), beside
+``graph_memory_check`` as for every row.
+
 Without a CUDA device the tool exits non-zero unless ``--cpu`` asks for the
 CPU (the plain twins; ``--mesh`` then takes N CPU entries). A row that
 raises ends the run. Tests and ``chip_smoke.py`` call :func:`run`.
@@ -187,6 +197,7 @@ _WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
 MESH_ROWS = ("ase_small", "seed_small", "scale64", "seed_scale4")
 
 GOLDEN_REL = 1e-5      # two-sided relative L2: goldens and twins
+F32_REL = 1e-5         # an f32 row against the f64 call of its unit
 STREAM_REL = 1e-12     # stream yields against the synchronous call
 MESH_REL = 1e-12       # a sharded call against the 1-card call
 SCALE_FLAT = 1.10      # scale64's peak allocated bytes over scale16's
@@ -223,6 +234,7 @@ class _Ctx(NamedTuple):
     method: str          # "cuda" (the kernels) or "cpu" (the plain twins)
     failed_ray_path: str
     eager: bool = False  # the chunk loop from Python in place of graphs
+    spectrum: torch.dtype = torch.float64
 
 
 def _sync(dev) -> None:
@@ -289,8 +301,9 @@ def _timed_call(ctx: _Ctx, p) -> dict:
     """One synchronous call through the call path's own stages (what
     ``create_image`` runs), with the stage split."""
     t0 = time.perf_counter()
-    prep = ray_tracer.prepare_pipeline(p, ctx.method, device=ctx.dev,
-                                       eager=ctx.eager)
+    prep = ray_tracer.prepare_pipeline(p, ctx.method,
+                                       spectrum_dtype=ctx.spectrum,
+                                       device=ctx.dev, eager=ctx.eager)
     t1 = time.perf_counter()
     outs = prep.pipeline(*prep.operands)
     t2 = time.perf_counter()
@@ -344,6 +357,7 @@ def _twin(ctx: _Ctx, source, scale):
     p = fresh_problem(source, scale)
     t0 = time.perf_counter()
     out = create_image(p, "cpu", device=ctx.dev, chunk_size=TWIN_CHUNK,
+                       spectrum_dtype=ctx.spectrum,
                        failed_ray_path=ctx.failed_ray_path)
     return out, time.perf_counter() - t0
 
@@ -371,9 +385,17 @@ def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
                 f"mem_after_{name}": mem})
     row.update({prefix + k: v
                 for k, v in _graph_memory(ctx, ctx.dev, mem).items()})
-    prep = ray_tracer.prepare_pipeline(pristine, ctx.method, device=ctx.dev,
-                                       eager=ctx.eager)
+    prep = ray_tracer.prepare_pipeline(pristine, ctx.method,
+                                       spectrum_dtype=ctx.spectrum,
+                                       device=ctx.dev, eager=ctx.eager)
     row[f"{prefix}graph"] = _graphs(prep.pipeline)
+    if ctx.spectrum == torch.float32:
+        want = create_image(fresh_problem(source, scale), ctx.method,
+                            device=ctx.dev,
+                            failed_ray_path=ctx.failed_ray_path)
+        rel = max(_rel(got[0], want[0]), _rel(got[1], want[1]))
+        row[f"{prefix}rel_vs_f64"] = rel
+        row[f"{prefix}f64_check"] = rel <= F32_REL
     dev_s = _device_s(ctx.dev, lambda: _timed_call(ctx, probs[0]))
     row[f"{prefix}device_s_per_call"] = dev_s
     row[f"{prefix}busy"] = (None if dev_s is None else
@@ -430,6 +452,7 @@ def _stream_row(ctx: _Ctx, name: str, source, scale, n_units: int,
     ray_tracer.clear_pipeline_cache()
     _reset_peak(ctx.dev)
     stream = functools.partial(create_image_stream, compute_method=ctx.method,
+                               spectrum_dtype=ctx.spectrum,
                                device=ctx.dev, depth=depth,
                                failed_ray_path=ctx.failed_ray_path)
     for _ in stream(perturbed_problems(source, depth, salt=99, scale=scale)):
@@ -474,6 +497,7 @@ def _stream_row(ctx: _Ctx, name: str, source, scale, n_units: int,
                                f"{len(units)} units")
         for u, (image, i_ang) in zip(units, outs):
             want = create_image(u, ctx.method, device=ctx.dev,
+                                spectrum_dtype=ctx.spectrum,
                                 failed_ray_path=ctx.failed_ray_path)
             worst = max(worst, _rel(image, want[0]), _rel(i_ang, want[1]))
     row[f"{prefix}max_rel_vs_sync"] = worst
@@ -505,9 +529,11 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
     prefix = f"{name}_mesh{len(mesh)}_"
     cards = [d for d in dict.fromkeys(mesh) if d.type == "cuda"]
     ray_tracer.clear_pipeline_cache()
-    runner = sharding.MeshRunner(mesh, ctx.method, eager=ctx.eager)
+    runner = sharding.MeshRunner(mesh, ctx.method, eager=ctx.eager,
+                                 spectrum_dtype=ctx.spectrum)
     single = create_image(fresh_problem(source, scale), ctx.method,
-                          device=ctx.dev, failed_ray_path=ctx.failed_ray_path)
+                          spectrum_dtype=ctx.spectrum, device=ctx.dev,
+                          failed_ray_path=ctx.failed_ray_path)
     # the peaks of the sharded calls alone
     for dev in cards:
         _reset_peak(dev)
@@ -547,6 +573,7 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
     row[prefix + "graph_memory_check"] = _all(
         [h["graph_memory_check"] for h in held.values()])
     prep = sharding.prepare_sharded(pristine, mesh, ctx.method,
+                                    spectrum_dtype=ctx.spectrum,
                                     eager=ctx.eager)
     row[f"{prefix}graphs"] = [_graphs(pipe) for pipe in prep.pipeline]
     dev_s = _device_s(ctx.dev, lambda: _mesh_call(ctx, runner, probs[0]))
@@ -565,10 +592,12 @@ def _golden(ctx: _Ctx, path: str, mesh=None) -> dict:
         return {"ok": None, "unavailable": "no embedded golden"}
     if mesh is None:
         image, i_ang = create_image(p, ctx.method, device=ctx.dev,
+                                    spectrum_dtype=ctx.spectrum,
                                     failed_ray_path=ctx.failed_ray_path)
     else:
         image, i_ang = sharding.create_image_sharded(
-            p, mesh, ctx.method, failed_ray_path=ctx.failed_ray_path)
+            p, mesh, ctx.method, spectrum_dtype=ctx.spectrum,
+            failed_ray_path=ctx.failed_ray_path)
     r_img, r_ang = _rel(image, image0), _rel(i_ang, i_ang0)
     ok = (check_ans(image0, i_ang0, image, i_ang, verbose=False)
           and r_img < GOLDEN_REL and r_ang < GOLDEN_REL)
@@ -603,7 +632,7 @@ def _log(msg: str) -> None:
 def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
         stream_rounds=STREAM_ROUNDS, twins=TWINS, ase=None, seed=None,
         out_dir=os.path.dirname(DEFAULT_OUT), mesh=None,
-        eager=False) -> dict:
+        eager=False, spectrum=torch.float64) -> dict:
     """Run the bench's rows on ``device``; returns the artifact.
 
     ``shapes``: the ASE and seeded ``synthetic_problem`` shapes;
@@ -616,15 +645,20 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
     :data:`MESH_ROWS` (each with its 1-card row in ``reps``) on
     ``make_mesh(N)``, or on N CPU entries for a CPU ``device``; ``eager``:
     the synchronous and mesh rows' calls run from Python on the card in
-    place of graph replays. Raises whatever a row raises.
+    place of graph replays; ``spectrum``: every call's ``spectrum_dtype``
+    (float32: rows named ``<row>_f32``, each held against its unit's f64
+    call). Raises whatever a row raises.
     """
     dev = torch.device(device)
     ctx = _Ctx(dev, "cuda" if dev.type == "cuda" else "cpu",
-               os.path.join(out_dir, "bench_failed_rays.dat"), eager)
+               os.path.join(out_dir, "bench_failed_rays.dat"), eager,
+               spectrum)
+    tag = "_f32" if spectrum == torch.float32 else ""
     os.makedirs(out_dir, exist_ok=True)
     sources = (ase or functools.partial(synthetic_problem, **shapes[0]),
                seed or functools.partial(synthetic_problem, **shapes[1]))
     res = {"method": ctx.method, "eager": eager,
+           "spectrum": str(spectrum).replace("torch.", ""),
            "platform": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
            "schema": SCHEMA,
@@ -652,25 +686,28 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
     res.update(_readback_probe(dev))
 
     for name in _ORDER:
+        row = name + tag
         if name in _ROWS and name in reps:
             seeded, si, salt = _ROWS[name]
-            res.update(_sync_row(ctx, name, sources[seeded],
+            res.update(_sync_row(ctx, row, sources[seeded],
                                  None if si is None else scales[si],
                                  reps[name], salt, name in twins))
-            _log(f"{name}: {res[f'{name}_n_rays']} rays, best "
-                 f"{res[f'{name}_best_seconds_per_call']} s/call, twins "
-                 f"{res[f'{name}_cross_backend_check']}, "
-                 f"{res[f'mem_after_{name}']}, reserved "
-                 f"{res[f'{name}_reserved_gib']} GiB, beyond the graphs' "
-                 f"pools {res[f'{name}_reserved_over_pools_gib']} GiB")
+            _log(f"{row}: {res[f'{row}_n_rays']} rays, best "
+                 f"{res[f'{row}_best_seconds_per_call']} s/call, twins "
+                 f"{res[f'{row}_cross_backend_check']}, "
+                 f"{res[f'mem_after_{row}']}, reserved "
+                 f"{res[f'{row}_reserved_gib']} GiB, beyond the graphs' "
+                 f"pools {res[f'{row}_reserved_over_pools_gib']} GiB"
+                 + (f", against f64 {res[f'{row}_rel_vs_f64']}" if tag
+                    else ""))
         elif name in _STREAMS and name in stream_rounds:
             parent, units, depth = _STREAMS[name]
             seeded, si, _ = _ROWS[parent]
-            res.update(_stream_row(ctx, name, sources[seeded],
+            res.update(_stream_row(ctx, row, sources[seeded],
                                    None if si is None else scales[si],
                                    units, depth, stream_rounds[name]))
-            _log(f"{name}: best {res[f'{name}_best_seconds_per_call']} "
-                 f"s/call, against sync {res[f'{name}_max_rel_vs_sync']}")
+            _log(f"{row}: best {res[f'{row}_best_seconds_per_call']} "
+                 f"s/call, against sync {res[f'{row}_max_rel_vs_sync']}")
 
     if mesh is not None:
         cards = (make_mesh(mesh) if dev.type == "cuda"
@@ -688,25 +725,26 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
                 continue
             seeded, si, salt = _ROWS[name]
             res.update(_mesh_row(
-                ctx, name, cards, sources[seeded],
+                ctx, name + tag, cards, sources[seeded],
                 None if si is None else scales[si], reps[name], salt,
-                res.get(f"{name}_best_seconds_per_call")))
-            p = f"{name}_mesh{mesh}_"
+                res.get(f"{name}{tag}_best_seconds_per_call")))
+            p = f"{name}{tag}_mesh{mesh}_"
             _log(f"{p[:-1]}: best {res[p + 'best_seconds_per_call']} "
                  f"s/call, speedup {res[p + 'speedup']}, against 1 card "
                  f"{res[p + 'rel_vs_single']}, reserved "
                  f"{res[p + 'reserved_gib']} GiB, beyond the graphs' pools "
                  f"{res[p + 'reserved_over_pools_gib']} GiB")
 
-    if "ase_small_best_seconds_per_call" in res:
-        res.update({"metric": "ase_small_rays_per_sec",
-                    "value": res["ase_small_rays_per_sec"], "unit": "rays/s"})
-        res.update({k: res["ase_small_" + k] for k in (
+    if f"ase_small{tag}_best_seconds_per_call" in res:
+        res.update({"metric": f"ase_small{tag}_rays_per_sec",
+                    "value": res[f"ase_small{tag}_rays_per_sec"],
+                    "unit": "rays/s"})
+        res.update({k: res[f"ase_small{tag}_" + k] for k in (
             "best_seconds_per_call", "median_seconds_per_call",
             "avg_seconds_per_call", "std_seconds_per_call", "stability_ok")})
 
     flat, ratio = None, None
-    mems = [res.get(f"mem_after_{r}", {}).get("max_memory_allocated")
+    mems = [res.get(f"mem_after_{r}{tag}", {}).get("max_memory_allocated")
             for r in ("scale16", "scale64")]
     if None not in mems:
         ratio = mems[1] / mems[0]
@@ -719,7 +757,8 @@ def run(device="cuda", shapes=SHAPES, scales=SCALES, reps=REPS,
              "scale_flat_check": flat,
              "graph_memory_check": res["graph_memory_check"]}
     gates.update({k: v for k, v in res.items()
-                  if k.endswith(("_cross_backend_check", "_sync_check"))})
+                  if k.endswith(("_cross_backend_check", "_sync_check",
+                                 "_f64_check"))})
     if mesh is not None:
         gates.update({k: v for k, v in res.items()
                       if k.endswith("_single_check")
@@ -741,7 +780,16 @@ def summary(res: dict) -> dict:
     s.update(card=prov["card"], git_commit=prov["git_commit"][:12],
              torch=prov["torch"], cuda=prov["cuda"],
              chunk_size=prov["chunk_size"])
+    tag = "_f32" if res.get("spectrum") == "float32" else ""
     s.update({k: res[k] for k in SUMMARY_KEYS if k in res})
+    if tag:
+        s["spectrum"] = res["spectrum"]
+        for k in SUMMARY_KEYS:
+            row = next((r for r in _ORDER if k.startswith(r + "_")), None)
+            f32 = k if row is None else row + tag + k[len(row):]
+            if f32 in res:
+                s[f32] = res[f32]
+        s.update({k: v for k, v in res.items() if k.endswith("_f64_check")})
     return s
 
 
@@ -763,6 +811,9 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="run the synchronous and mesh rows' calls from "
                     "Python in place of CUDA graph replays")
+    ap.add_argument("--spectrum", choices=("f64", "f32"), default="f64",
+                    help="every call's spectrum_dtype (f32: rows "
+                    "<row>_f32, each held against its unit's f64 call)")
     args = ap.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device (--cpu runs the plain twins "
@@ -771,7 +822,9 @@ def main(argv=None) -> int:
               reps=REPS, stream_rounds=STREAM_ROUNDS, twins=TWINS,
               ase=args.ase, seed=args.seed,
               out_dir=os.path.dirname(os.path.abspath(args.out)),
-              mesh=args.mesh, eager=args.eager)
+              mesh=args.mesh, eager=args.eager,
+              spectrum=(torch.float32 if args.spectrum == "f32"
+                        else torch.float64))
     full = json.dumps(res)
     with open(args.out, "w") as f:
         f.write(full + "\n")

@@ -1,4 +1,4 @@
-"""The f64 kernels' outputs on fixed inputs, to hold two trees' kernels
+"""The kernels' outputs on fixed inputs, to hold two trees' kernels
 against each other on the card.
 
     python -m raytrace_tpu_torch.tools.kernel_digest OUT.npz
@@ -9,13 +9,18 @@ Writes the outputs of B1, B3 and B2 in f64 on the inputs of
 ``chip_smoke.py``'s phase 3: a 2^20-ray chunk of the seeded shipped shape
 (B1, then B3 with the chunk's seed factors, then B2 on B3's spectra at
 B1's exit rays) and the whole ASE call (B1, then B2 on the plain
-emissivity amplify's spectra). It uses only wrapper interfaces that every
-tree since the kernels' redesigns has, so an older tree's package runs it
-through ``PYTHONPATH``. ``--compare`` prints, per output, whether the two
-files agree bitwise and their largest relative difference; its exit code
-counts the outputs that differ, bitwise for every output but B2's image
-and I_ang, which f64 atomics sum in an order that changes from run to run
-(held to 1e-14 relative). Needs a CUDA device to write.
+emissivity amplify's spectra); then the same in f32, the inputs of
+``chip_smoke.py``'s f32 kernel checks: B3-f32's pair ``(hi, lo)``,
+spectrum and flags on the seeded chunk, and B2-f32's bins, image and I_ang
+on B3-f32's spectra and on the ASE call's f32 emissivity amplify. It uses
+only wrapper interfaces that every tree since the kernels' redesigns has
+(the f32 outputs: every tree with the f32 kernels), so an older tree's
+package runs it through ``PYTHONPATH``. ``--compare`` prints, per output,
+whether the two files agree bitwise and their largest relative difference;
+its exit code counts the outputs that differ, bitwise for every output but
+B2's and B2-f32's image and I_ang, which f64 atomics sum in an order that
+changes from run to run (held to 1e-14 relative). Needs a CUDA device to
+write.
 """
 
 from __future__ import annotations
@@ -70,20 +75,39 @@ def _outputs() -> dict:
             flags = amplify_kernel.iv_flags(Iv)
         beam = prepare_beam(p.euv_beam, dev)
         coords = binning.source_coords(res, rays, method)
-        ok = ~res.perp & (flags == 0)
+        scale = _validate(p)[2]
         f64 = dict(dtype=torch.float64, device=dev)
         C = beam.x.shape[0] * beam.y.shape[0]
         A = beam.a.shape[0] * beam.b.shape[0]
-        image, i_ang = torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64)
-        deposit_kernel.bin_deposit(Iv, coords, ok, beam, method,
-                                   _validate(p)[2], image, i_ang)
-        bins = deposit_kernel._launch(
-            lib, Iv, coords, ok, beam, method, _validate(p)[2],
-            torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64), stream,
-            bins=True)
-        out[f"{name}.deposit.bins"] = bins
-        out[f"{name}.deposit.image"] = image
-        out[f"{name}.deposit.i_ang"] = i_ang
+        spectra = [("deposit", Iv, flags)]
+        if hasattr(amplify_kernel, "F32"):
+            f32 = torch.float32
+            if method == 2:
+                args = (f, fv, res.escaped, res.ivl, res.gvl, gv)
+                Iv32, flags32, pair = amplify_kernel._launch(
+                    lib, *args, stream, log_gain=True, dtype=f32)
+                out[f"{name}.amplify_f32.hi"] = pair[0]
+                out[f"{name}.amplify_f32.lo"] = pair[1]
+                out[f"{name}.amplify_f32.Iv"] = Iv32
+                out[f"{name}.amplify_f32.flags"] = flags32
+            else:
+                Iv32 = spectrum.amplify(res, torch.zeros(
+                    (B, K), dtype=f32, device=dev), gv, p.N, dtype=f32)
+                flags32 = amplify_kernel.iv_flags(Iv32)
+            spectra.append(("deposit_f32", Iv32, flags32))
+        for part, Iv_d, flags_d in spectra:
+            ok = ~res.perp & (flags_d == 0)
+            image = torch.zeros((C, K), **f64)
+            i_ang = torch.zeros((A, 1), **f64)
+            deposit_kernel.bin_deposit(Iv_d, coords, ok, beam, method, scale,
+                                       image, i_ang)
+            bins = deposit_kernel._launch(
+                lib, Iv_d, coords, ok, beam, method, scale,
+                torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64),
+                stream, bins=True)
+            out[f"{name}.{part}.bins"] = bins
+            out[f"{name}.{part}.image"] = image
+            out[f"{name}.{part}.i_ang"] = i_ang
     torch.cuda.synchronize()
     return {k: v.cpu().numpy() for k, v in out.items()}
 
@@ -103,7 +127,8 @@ def compare(a: dict, b: dict) -> int:
         if not same and x.shape == y.shape and x.dtype.kind == "f":
             scale = max(float(np.nanmax(np.abs(y))), 1e-300)
             rel = float(np.nanmax(np.abs(x - y))) / scale
-        atomic = k.endswith(".deposit.image") or k.endswith(".deposit.i_ang")
+        atomic = (k.split(".")[1] in ("deposit", "deposit_f32")
+                  and k.endswith((".image", ".i_ang")))
         ok = same or (atomic and x.shape == y.shape and rel <= ATOMIC_REL)
         bad += not ok
         print(f"{k}: {x.dtype} {list(x.shape)} bitwise {same}, max rel "

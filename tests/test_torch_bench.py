@@ -281,3 +281,41 @@ def test_failed_mesh_gate_sets_gates_ok(monkeypatch, tmp_path):
                     out_dir=str(tmp_path), mesh=2)
     assert res["ase_small_mesh2_single_check"] is False
     assert res["gates_ok"] is False
+
+
+@pytest.fixture(scope="module")
+def f32_artifact(tmp_path_factory):
+    return bench.run("cpu", shapes=SHAPES, scales=SCALES,
+                     reps={"seed_small": 2, "seed_scale4": 2},
+                     stream_rounds={"seed_stream": 1},
+                     out_dir=str(tmp_path_factory.mktemp("bench_f32")),
+                     spectrum=torch.float32)
+
+
+@pytest.mark.parametrize("row", ["seed_small", "seed_scale4", "seed_stream"])
+def test_f32_rows(f32_artifact, row):
+    """``spectrum=float32``: each row named ``<row>_f32`` with the root
+    bench's keys; each synchronous f32 row within 1e-5 of its unit's f64
+    call, gated; no f64 row is run."""
+    keys = SYNC_KEYS if row in SYNC_ROWS else STREAM_KEYS
+    for k in keys:
+        assert f"{row}_f32_{k}" in f32_artifact, f"{row}_f32_{k}"
+        assert f"{row}_{k}" not in f32_artifact
+    if row in SYNC_ROWS:
+        assert f32_artifact[f"{row}_f32_rel_vs_f64"] <= bench.F32_REL
+        assert f32_artifact["gates"][f"{row}_f32_f64_check"] is True
+    assert f32_artifact["spectrum"] == "float32" and f32_artifact["gates_ok"]
+
+
+def test_f32_summary(monkeypatch, capsys, tmp_path):
+    """``--spectrum=f32``: the rows in f32, and the summary line carries
+    their keys and their f64 gates."""
+    _tiny(monkeypatch, {"seed_small": 1}, {})
+    out = tmp_path / "bench.json"
+    assert bench.main(["--cpu", "--out", str(out), "--spectrum=f32"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["spectrum"] == "float32"
+    assert "seed_small_f32_best_seconds_per_call" in last
+    assert last["seed_small_f32_f64_check"] is True
+    full = json.loads(out.read_text())
+    assert full["gates"]["seed_small_f32_f64_check"] is True

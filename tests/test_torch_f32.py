@@ -89,6 +89,66 @@ def test_error_free_transforms_bitwise(name):
                               np.asarray(w).view(np.int32))
 
 
+def _exact_error(a, b, p):
+    """``f32(f64(a) f64(b) - f64(p))``: the product's exact error rounded
+    once, what one fused multiply-add ``fma(a, b, -p)`` gives (B3-f32's
+    error term, ``csrc/amplify.cu``). The f64 product of two f32 values and
+    its difference from ``p`` are exact."""
+    return (a.double() * b.double() - p.double()).float()
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("span", [20, 60, 120])
+def test_split_prod_error_is_the_fused_error(span):
+    """Dekker's error (``twofloat.split_prod``, the twin's and the JAX
+    package's) equals the fused multiply-add's bitwise on the domain that
+    ``csrc/amplify.cu`` states: ``p`` finite with ``|p| >= 2^-100``, and
+    ``p`` an exact zero (a zero factor, either sign). Seeded pairs with
+    exponents over +-``span``."""
+    rng = np.random.default_rng(span)
+    n = 1_000_000
+
+    def operand():
+        x = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-span, span, n)
+             * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+        x[rng.random(n) < 0.001] = 0.0
+        x[rng.random(n) < 0.001] = -0.0
+        return torch.from_numpy(x)
+
+    a, b = operand(), operand()
+    p, err = twofloat.split_prod(a, b)
+    zero = (a == 0) | (b == 0)
+    domain = (torch.isfinite(p) & (p.abs() >= 2.0 ** -100)) | zero
+    assert zero.sum() > 1000 and domain.sum() > 0.4 * n
+    assert torch.equal(_bits(err[domain]),
+                       _bits(_exact_error(a, b, p)[domain]))
+
+
+#: pairs whose product lies near f32's underflow, where Dekker's error (its
+#: partial products underflow) and the fused error differ: (a, b, Dekker's,
+#: the fused)
+_UNDERFLOW_PAIRS = (
+    (float.fromhex("0x1.6f22acp-57"), float.fromhex("0x1.45a266p-59"),
+     float.fromhex("0x1.2ap-141"), float.fromhex("0x1.29p-141")),
+    (float.fromhex("-0x1.a209bap-113"), float.fromhex("0x1.635eeep-20"),
+     float.fromhex("0x1p-149"), 0.0),
+)
+
+
+@pytest.mark.parametrize("a,b,dekker,fused", _UNDERFLOW_PAIRS)
+def test_split_prod_error_differs_near_underflow(a, b, dekker, fused):
+    """Below the stated domain the two errors can differ: the listed pairs
+    (``|p|`` about 2^-115 and 2^-132) pin where it ends."""
+    a, b = (torch.tensor([x], dtype=torch.float32) for x in (a, b))
+    p, err = twofloat.split_prod(a, b)
+    assert p.abs().item() < 2.0 ** -100
+    assert err.item() == dekker and _exact_error(a, b, p).item() == fused
+    assert err.item() != _exact_error(a, b, p).item()
+
+
 def _hi_lo(case, n=20000, seed=2):
     """Log-gain pairs: ``lo`` within the rounding of ``hi``."""
     rng = np.random.default_rng(seed)

@@ -41,6 +41,7 @@ _SHIM = r"""
 using std::tan; using std::atan; using std::exp;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
@@ -58,10 +59,12 @@ inline float2 make_float2(float x, float y) { return {x, y}; }
 inline unsigned __float_as_uint(float v) { unsigned u; std::memcpy(&u, &v, 4); return u; }
 inline float __uint_as_float(unsigned u) { float v; std::memcpy(&v, &u, 4); return v; }
 inline float __int_as_float(int i) { float v; std::memcpy(&v, &i, 4); return v; }
+inline int __float_as_int(float v) { int i; std::memcpy(&i, &v, 4); return i; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
+constexpr int cudaErrorInvalidValue = 1;
 inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n); return 0;
 }
@@ -82,6 +85,15 @@ inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 template <class T> inline T __shfl_sync(unsigned, T v, int, int = 32) { return v; }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int, int = 32) { return v; }
+inline unsigned __match_any_sync(unsigned, unsigned long long) { return 1u; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+// a block that shares memory runs as one thread (its loops are strided by
+// blockDim.x), so a barrier has nothing to wait for
+inline void __syncthreads() {}
+#define __align__(n) alignas(n)
+alignas(16) static unsigned char rt_dynamic_shared[1 << 20];
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 """
 
 #: a launch ``kernel<...><<<grid, block, 0, stream>>>(args);`` with the
@@ -92,8 +104,14 @@ _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^<>]*?)>>>"
 
 def _host_launch(m):
     """The launch as loops over blocks and over the block's threads (y
-    outer, x inner), one thread after another."""
-    grid, block = (x.strip() for x in m.group(2).split(",")[:2])
+    outer, x inner), one thread after another. A launch with dynamic shared
+    memory is a block whose threads share it across barriers: it runs as
+    one thread, which its loops (strided by blockDim.x) carry through the
+    whole block's work, barriers and all."""
+    config = [x.strip() for x in m.group(2).split(",")]
+    grid, block = config[:2]
+    if len(config) > 2 and config[2] != "0":
+        block = "1"
     return ("{ const dim3 g_(" + grid + "), b_(" + block + "); "
             "gridDim = g_; blockDim = b_; "
             "for (unsigned bx = 0; bx < g_.x; ++bx) "
@@ -101,6 +119,11 @@ def _host_launch(m):
             "for (unsigned tx = 0; tx < b_.x; ++tx) { "
             "blockIdx.x = bx; threadIdx.x = tx; threadIdx.y = ty; "
             f"{m.group(1)}({m.group(3)}); }} }}")
+
+
+#: a block's dynamic shared memory, onto the shim's one host buffer
+_DYNAMIC_SHARED = re.compile(
+    r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];")
 
 
 def _host_build(d, sources, defines=()):
@@ -113,6 +136,8 @@ def _host_build(d, sources, defines=()):
     srcs = []
     for cu in sources:
         text, n = _LAUNCH.subn(_host_launch, cu.read_text())
+        text = _DYNAMIC_SHARED.sub(r"unsigned char* \1 = rt_dynamic_shared;",
+                                   text)
         assert n > 0, f"{cu.name}: launch statement not found"
         out = d / (cu.stem + "_host.cpp")
         out.write_text(text)
@@ -426,6 +451,34 @@ def test_deposit_f32_source_equals_twin(host_lib, method, shape):
     want = _accumulators(beam, K, 1.0)
     deposit_kernel.bin_deposit_plain(*args, *want)
     assert torch.equal(bins, bin_indices(coords, ok, beam, method))
+    for g, w in zip(got, want):
+        assert not g.isnan().any()
+        torch.testing.assert_close(g, w, rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("K,B", [(82, 300), (52, 261), (7, 129), (400, 70)])
+def test_deposit_f32_source_views(host_lib, offset, K, B):
+    """B2-f32's staged copy on a spectrum that is a view at ``offset``
+    floats into its storage (every 16-byte phase: a ragged head of single
+    floats, 16-byte copies, a ragged tail), with a ragged last tile, and
+    at a K whose tile needs more than 48 KB of shared memory (several
+    passes of frequency slots): bins bitwise, image and I_ang within 1e-14
+    of the twin's."""
+    from raytrace_tpu_torch.ops.binning import bin_indices
+
+    args, beam = _deposit_case(dict(nx=31, ny=9, na=11, nb=10, nv=K), 2, B,
+                               offset)
+    store = torch.zeros(B * K + 4, dtype=torch.float32)
+    view = store[offset:offset + B * K].view(B, K)
+    view.copy_(args[0])
+    args = (view,) + args[1:]
+    assert view.data_ptr() % 16 == 4 * offset
+    got = _accumulators(beam, K)
+    bins = deposit_kernel._launch(host_lib, *args, *got, None, bins=True)
+    want = _accumulators(beam, K)
+    deposit_kernel.bin_deposit_plain(*args, *want)
+    assert torch.equal(bins, bin_indices(*args[1:3], beam, 2))
     for g, w in zip(got, want):
         assert not g.isnan().any()
         torch.testing.assert_close(g, w, rtol=1e-14, atol=0)

@@ -287,6 +287,42 @@ def test_deposit_f32_kernel_vs_twin(cuda, method):
         assert ((g - w).abs().max() / w.abs().max()).item() < 1e-12
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("K,B", [(82, 4099), (52, 1000), (7, 300),
+                                 (400, 700)])
+def test_deposit_f32_kernel_views(cuda, offset, K, B):
+    """B2-f32 on a spectrum that is a view at ``offset`` floats into its
+    storage (each 16-byte phase of the staged copies), with a ragged last
+    tile, and at K 400, whose tile takes more than 48 KB of shared memory:
+    bins bitwise, image and I_ang within 1e-12 of the twin's."""
+    from raytrace_tpu_torch.models.problem import prepare_beam
+    from raytrace_tpu_torch.ops.binning import bin_indices
+    from raytrace_tpu_torch.testing import deposit_inputs
+
+    p = synthetic_problem(nx=31, ny=9, na=11, nb=10, nv=K, seeded=True)
+    Iv, coords, ok = deposit_inputs(p.euv_beam, B, seed=offset)
+    store = torch.zeros(B * K + 4, dtype=torch.float32, device=cuda)
+    view = store[offset:offset + B * K].view(B, K)
+    view.copy_(torch.as_tensor(Iv, device=cuda))
+    beam = prepare_beam(p.euv_beam, cuda)
+    args = (view, tuple(torch.as_tensor(c, device=cuda) for c in coords),
+            torch.as_tensor(ok, device=cuda), beam, 2, 0.37)
+    C, A = p.euv_beam.nx * p.euv_beam.ny, p.euv_beam.na * p.euv_beam.nb
+    f64 = dict(dtype=torch.float64, device=cuda)
+    got = (torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64))
+    want = (torch.zeros((C, K), **f64), torch.zeros((A, 1), **f64))
+    bins = deposit_kernel._launch(cuda_lib.load_library(), *args, *got,
+                                  torch.cuda.current_stream().cuda_stream,
+                                  bins=True)
+    deposit_kernel.bin_deposit_plain(*args, *want)
+    torch.cuda.synchronize()
+    assert view.data_ptr() % 16 == 4 * offset
+    assert torch.equal(bins, bin_indices(*args[1:3], beam, 2))
+    for g, w in zip(got, want):
+        assert not g.isnan().any()
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-12
+
+
 @pytest.mark.parametrize("seeded", [False, True])
 def test_create_image_f32_on_card(cuda, seeded):
     """The f32 call on the card: the kernels' f32 instantiations launched
