@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (and, where a
 host has several, on all of them).
 
-    python3 chip_smoke.py              # phases 1-10, 12-14; 11 on 2+ cards
+    python3 chip_smoke.py              # phases 1-10, 12-15; 11 on 2+ cards
     python3 chip_smoke.py --multicard  # the build and phase 11 alone
 
 Drives ``raytrace_tpu_torch``'s ``create_image`` main path, its
@@ -185,7 +185,24 @@ fails (non-zero exit, no result line) if any phase fails:
    at depth 2, an f32 mesh stream and f32 sharded calls on two entries of
    the card over 4 units with tables all different of each shipped shape,
    each within 1e-12 of the synchronous f32 call. B1, B2-f32 and B3-f32
-   (the f32 instantiations' own counts) must have launched.
+   (the f32 instantiations' own counts) must have launched;
+15. with the counts at 0 again (run before phase 11), ``raytrace_tpu``'s
+   own backend names on the card: ``create_image`` with ``lax`` and
+   ``lax-exact`` and no device on both fixtures (``check_ans`` against
+   their goldens) and on the ASE shipped shape, and with ``lax`` on the
+   seeded shipped shape, each against the ``cuda`` call of the same
+   problem within 1e-12 relative L2 (the ``cuda`` calls do not count);
+   each must run on the card (its pipeline, the latest the cache used,
+   runs from Python on ``cuda:0``, and the call allocates at least its
+   image there), name ``cpu`` by ``resolve_method`` and launch no kernel;
+   a ``lax`` stream at depth 2 over 3 ASE units with tables all different
+   (each yield within 1e-12 of its unit's ``cuda`` call, no graph
+   captured, no kernel launched); the reference's CPU-class names route
+   to the CPU, and ``threads`` runs there on a fixture; the CLI with
+   ``-methods=lax`` on the ASE fixture as a subprocess (its row
+   ``lax->cpu@cuda`` on ``cuda:0``, the golden check passed). Seconds of
+   ``lax`` and ``cuda`` on the card and of the twins on the host's CPU
+   (the ASE shipped shape only: the seeded one takes minutes there).
 
 Prints one JSON line of per-kernel results, every card's line, and as its
 last line ``{"ok": true, "device": {...}}``; ``--multicard`` prints no
@@ -1013,11 +1030,10 @@ def phase_plain(outs):
 
     for name, (p, image, i_ang) in outs.items():
         t0 = time.perf_counter()
-        # the kernels' chunk size: 8 seeded chunks in place of the CPU
-        # default's 477 (the twins' launch count, not their arithmetic,
-        # set the time), the same result to rounding
-        image_p, i_ang_p = create_image(p, "cpu", device="cuda",
-                                        chunk_size=1 << 20)
+        # a call on the card takes the kernels' chunk size: 8 seeded
+        # chunks in place of the CPU's 477 (the twins' launch count, not
+        # their arithmetic, set the time), the same result to rounding
+        image_p, i_ang_p = create_image(p, "cpu", device="cuda")
         dt = time.perf_counter() - t0
         r_img, r_ang = rel_l2(image, image_p), rel_l2(i_ang, i_ang_p)
         if r_img >= 1e-5 or r_ang >= 1e-5:
@@ -2077,6 +2093,159 @@ MULTI_REPS = {"ase_small": 3, "seed_small": 3, "scale64": 2,
 MULTI_REL = 1e-12
 
 
+#: the kernels a call of phase 15's names must not launch
+ROUTED_KERNELS = ("trace", "bin_deposit", "amplify", "bin_deposit_f32",
+                  "amplify_f32")
+#: the reference's CPU-class names: they run on the CPU on a card host too
+CPU_CLASS = ("cpu", "threads", "openmp", "kokkos-serial", "kokkos-openmp",
+             "kokkos-thread")
+
+
+def routed_call(what, p, name):
+    """``create_image(p, name)`` with no device, timed; fails unless it ran
+    the twins from Python on the card (the latest pipeline the cache used,
+    and device memory at least its image's), ``resolve_method`` names
+    ``cpu`` and no kernel was launched. Returns the output and seconds."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    before = {n: WRAPPERS[n].launch_count for n in ROUTED_KERNELS}
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    t0 = time.perf_counter()
+    out = create_image(p, name)
+    dt = time.perf_counter() - t0
+    made = {n: WRAPPERS[n].launch_count - before[n] for n in ROUTED_KERNELS}
+    pipe = next(reversed(ray_tracer._PIPELINE_CACHE.values()))
+    grew = torch.cuda.max_memory_allocated(card) - base
+    resolved = ray_tracer.resolve_method(p, name)
+    if (any(made.values()) or resolved != "cpu"
+            or not isinstance(pipe, ray_tracer._EagerPipeline)
+            or pipe.cfg["device"] != card or pipe.cfg["graph"]
+            or grew < out[0].nbytes):
+        fail(f"{what} with {name!r}: launches {made}, resolve_method "
+             f"{resolved!r}, pipeline {type(pipe).__name__} on "
+             f"{pipe.cfg['device']}, graph {pipe.cfg['graph']}, {grew} "
+             f"bytes allocated on {card}")
+    return out, dt
+
+
+def phase_routing():
+    """Phase 15: ``lax`` and ``lax-exact`` with no device run the twins on
+    the card; the CPU-class names stay on the CPU; the CLI's ``lax`` row
+    runs on the card."""
+    from raytrace_tpu_torch import (check_ans, create_image,
+                                    create_image_stream, load_input)
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
+                                            perturbed_problems,
+                                            synthetic_problem)
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    rec = {}
+
+    def against_cuda(what, p, got):
+        """The largest rel L2 of ``got`` against the cuda call of ``p``
+        (which does not count), and that call's seconds (a replay)."""
+        uncounted(create_image, p, "cuda", device="cuda")  # captures
+        t0 = time.perf_counter()
+        want = uncounted(create_image, p, "cuda", device="cuda")
+        dt = time.perf_counter() - t0
+        check_output(*got, p)
+        worst = max(rel_l2(got[0], want[0]), rel_l2(got[1], want[1]))
+        if worst > 1e-12:
+            fail(f"{what}: rel L2 against the cuda call {worst}")
+        return worst, dt
+
+    for fixture in ("golden_ase.dat", "golden_seed.dat"):
+        for name in ("lax", "lax-exact"):
+            p, image0, i_ang0 = load_input(os.path.join(FIXTURES, fixture))
+            got, dt = routed_call(fixture, p, name)
+            worst, _ = against_cuda(f"{fixture} {name}", p, got)
+            if not check_ans(image0, i_ang0, *got):
+                fail(f"{fixture} with {name!r}: check_ans")
+            print(f"{fixture} {name} on {card}: check_ans ok, rel L2 "
+                  f"against cuda {worst:.3e}, {dt:.4f} s", flush=True)
+            rec[f"{fixture}_{name}"] = dict(rel_cuda=worst, s=dt)
+
+    for what, shape, names in (("ase", ASE_SHAPE, ("lax", "lax-exact")),
+                               ("seed", SEED_SHAPE, ("lax",))):
+        p = synthetic_problem(**shape)
+        for name in names:
+            got, dt = routed_call(f"{what} shipped shape", p, name)
+            worst, cuda_s = against_cuda(f"{what} {name}", p, got)
+            print(f"{what} shipped shape {name} on {card}: {dt:.4f} s "
+                  f"(cuda {cuda_s:.5f} s), rel L2 against cuda "
+                  f"{worst:.3e}", flush=True)
+            rec[f"{what}_{name}"] = dict(s=dt, cuda_s=cuda_s,
+                                         rel_cuda=worst)
+    t0 = time.perf_counter()
+    create_image(synthetic_problem(**ASE_SHAPE), "cpu")
+    rec["ase_host_cpu_s"] = time.perf_counter() - t0
+    print(f"ase shipped shape, the twins on the host's CPU "
+          f"({torch.get_num_threads()} threads): "
+          f"{rec['ase_host_cpu_s']:.3f} s", flush=True)
+
+    # a stream of lax calls: eager calls in flight at depth 2, no graph
+    source = functools.partial(synthetic_problem, **ASE_SHAPE)
+    want = [uncounted(create_image, u, "cuda", device="cuda")
+            for u in perturbed_problems(source, 3, salt=71)]
+    graphs = len(ray_tracer._graph_pipelines(card))
+    before = {n: WRAPPERS[n].launch_count for n in ROUTED_KERNELS}
+    units = perturbed_problems(source, 3, salt=71)
+    t0 = time.perf_counter()
+    worst, yields = 0.0, 0
+    for k, (image, i_ang) in enumerate(create_image_stream(units, "lax",
+                                                           depth=2)):
+        worst = max(worst, rel_l2(image, want[k][0]),
+                    rel_l2(i_ang, want[k][1]))
+        yields += 1
+    dt = time.perf_counter() - t0
+    made = {n: WRAPPERS[n].launch_count - before[n] for n in ROUTED_KERNELS}
+    after = len(ray_tracer._graph_pipelines(card))
+    if yields != 3 or worst > 1e-12 or any(made.values()) or after != graphs:
+        fail(f"lax stream: {yields} yields, worst rel L2 against cuda "
+             f"{worst}, launches {made}, graph pipelines {graphs} -> "
+             f"{after}")
+    print(f"lax stream depth 2 over 3 ASE units on {card}: rel L2 against "
+          f"cuda <= {worst:.3e}, {dt / 3:.4f} s/call", flush=True)
+    rec["ase_lax_stream"] = dict(worst_rel=worst, per_call_s=dt / 3)
+
+    # the CPU-class names stay on the CPU on a card host
+    routes = {name: ray_tracer._route(name) for name in CPU_CLASS}
+    if any(r != ("cpu", torch.device("cpu")) for r in routes.values()):
+        fail(f"CPU-class routes: {routes}")
+    p, image0, i_ang0 = load_input(os.path.join(FIXTURES, "golden_ase.dat"))
+    got = create_image(p, "threads")
+    pipe = next(reversed(ray_tracer._PIPELINE_CACHE.values()))
+    if pipe.cfg["device"].type != "cpu" or not check_ans(image0, i_ang0,
+                                                          *got):
+        fail(f"'threads' on {pipe.cfg['device']}: check_ans "
+             f"{check_ans(image0, i_ang0, *got)}")
+    print(f"CPU-class names {CPU_CLASS} route to the CPU; threads ran there "
+          f"on golden_ase.dat, check_ans ok", flush=True)
+
+    (out, rc), = run_children(
+        [[sys.executable, "-m", "raytrace_tpu_torch.utils.cli",
+          "-methods=lax", "-iterations=2",
+          os.path.join(FIXTURES, "golden_ase.dat")]], 300,
+        "the CLI's lax row", gate_errors_ok=True)
+    gates = cli_gate_errors(out)
+    row = [line.strip() for line in out.splitlines()
+           if line.strip().startswith("lax->cpu@cuda ")]
+    if ("Running lax->cpu@cuda on cuda:0" not in out or len(row) != 1
+            or "Answers do not match" in out or rc != gates):
+        print(out[-4000:], flush=True)
+        fail(f"the CLI's lax row: {row}, exit code {rc}, {gates} "
+             f"timing-gate errors printed")
+    print(f"CLI -methods=lax: row {row[0]!r} on cuda:0, golden check "
+          f"passed, exit code {rc} ({gates} timing-gate errors)", flush=True)
+    rec["cli_row"] = row[0]
+    record["routing"] = rec
+
+
 def card_lines():
     """Every card's name and power limit, as nvidia-smi reports them."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2596,6 +2765,8 @@ def main(argv) -> int:
     _, record["host_launches"] = run_path("host surface", phase_host,
                                           path_kernels)
     _, f32_launches = run_path("f32 path", phase_f32, F32_KERNELS)
+    _, record["routing_launches"] = run_path("routing path", phase_routing,
+                                             ())
     launches.update({n: f32_launches[n] for n in F32_KERNELS
                      if n.endswith("_f32")})
     record["f32_launches"] = f32_launches

@@ -39,11 +39,14 @@ a CUDA device the call runs with that device current
 (``cuda_lib.device_guard``), whichever device the caller had made current.
 
 Methods: ``cuda`` runs the hand-written kernels (trace B1, deposit B2,
-amplify B3) on a CUDA device; ``cpu`` runs their plain PyTorch twins (on the
-CPU unless a ``device`` is given -- a CUDA device then runs the twins on the
-card, which is how the kernels are checked end to end). The reference's
-method names and ``raytrace_tpu``'s (``pallas``; ``lax`` and ``lax-exact``)
-map onto these two (``_METHOD_ALIASES``).
+amplify B3) on a CUDA device; ``cpu`` runs their plain PyTorch twins, from
+Python, on the CPU or on a card. The reference's method names and
+``raytrace_tpu``'s (``pallas``; ``lax`` and ``lax-exact``) map onto these
+two (``_METHOD_ALIASES``), and one rule (:func:`_route`) gives the device of
+a call made without one: the reference's CPU-class names run on the CPU,
+every other name on the default device, the card where one is visible.
+:func:`resolve_method` names the method a call runs, as ``raytrace_tpu``'s
+does.
 
 The entry points take ``raytrace_tpu``'s arguments in its positional order
 (``compute_method, chunk_size, spectrum_dtype, c, deposit, ...``); the
@@ -91,15 +94,24 @@ METHODS = ("cuda", "cpu")
 #: the reference's compute_method names (src/RayTraceImage.cpp:333-423):
 #: the CUDA-class backends map to the kernels, every other one to the twins;
 #: and ``raytrace_tpu``'s backends: its kernel backend ``pallas`` to the
-#: kernels, its XLA backends ``lax`` and ``lax-exact`` to the twins on the
-#: call's device (as it maps ``cuda`` to ``pallas`` and ``cpu`` to
-#: ``lax-exact``)
+#: kernels, its XLA backends ``lax`` and ``lax-exact`` to the twins (as it
+#: maps ``cuda`` to ``pallas`` and ``cpu`` to ``lax-exact``)
 _METHOD_ALIASES = {
     "threads": "cpu", "openmp": "cpu", "kokkos-serial": "cpu",
     "kokkos-openmp": "cpu", "kokkos-thread": "cpu", "openacc": "cpu",
     "kokkos-cuda": "cuda", "cuda-multigpu": "cuda",
     "pallas": "cuda", "lax": "cpu", "lax-exact": "cpu",
 }
+
+#: the names that run on the CPU when a call gives no device: the
+#: reference's CPU-class backends, which it runs on the host's cores.
+#: Every other name runs on the default device, the card where one is
+#: visible: the CUDA-class names and ``pallas`` the kernels; ``lax`` and
+#: ``lax-exact`` the twins, as ``raytrace_tpu`` runs its XLA backends on
+#: JAX's default device; and ``openacc``, an accelerator backend in the
+#: reference that ``raytrace_tpu`` maps to ``lax``, the same
+_CPU_NAMES = frozenset({"cpu", "threads", "openmp", "kokkos-serial",
+                        "kokkos-openmp", "kokkos-thread"})
 
 #: ``raytrace_tpu``'s deposit strategies (``resolve_bin_deposit``). On a TPU
 #: they are different kernels: ``scatter`` a ``segment_sum``, ``matmul`` the
@@ -109,10 +121,11 @@ _METHOD_ALIASES = {
 #: its twin elsewhere: the images agree up to the order of the f64 sums.
 DEPOSITS = ("auto", "scatter", "matmul", "dense")
 
-#: rays per chunk. On CUDA a call is a few large launches (the seeded
-#: shipped shape, 7.8M rays, is eight chunks); each chunk's f64 [chunk, K]
-#: spectra live in device memory (peak per call: chip_smoke.py, PERF.md).
-#: The CPU chunk keeps the plain trace's masked loops cache-sized.
+#: rays per chunk, by the type of the call's device. On CUDA a call is a
+#: few large launches (the seeded shipped shape, 7.8M rays, is eight
+#: chunks), the twins' too; each chunk's f64 [chunk, K] spectra live in
+#: device memory (peak per call: chip_smoke.py, PERF.md). The CPU chunk
+#: keeps the plain trace's masked loops cache-sized.
 DEFAULT_CHUNK = {"cuda": 1 << 20, "cpu": 16384}
 
 
@@ -165,25 +178,45 @@ def available_methods() -> list[str]:
     return ["cpu", "cuda"] if torch.cuda.is_available() else ["cpu"]
 
 
-def resolve_method(compute_method: str = "auto", device=None):
-    """``(method, device)`` a call runs with. ``auto`` follows the device;
-    without a device, the default one (CUDA when present)."""
+def _route(compute_method: str = "auto", device=None):
+    """``(method, device)`` of a call: the method ``cuda`` (the kernels) or
+    ``cpu`` (the twins) and the device it runs on. An explicit ``device``
+    wins, and ``auto`` follows it. Without one, one rule for every name: a
+    CPU-class name (:data:`_CPU_NAMES`) runs on the CPU, any other on the
+    card where one is visible; on a host without a card every name runs the
+    twins on the CPU, as ``auto`` does. The kernels on a device that is not
+    a card raise."""
     name = compute_method.lower()
-    name = _METHOD_ALIASES.get(name, name)
-    if name not in METHODS + ("auto",):
+    method = _METHOD_ALIASES.get(name, name)
+    if method not in METHODS + ("auto",):
         raise err_util.RayTraceError(f"Unknown method: {compute_method}")
     if device is None:
-        use_cuda = name == "cuda" or (name == "auto"
-                                      and torch.cuda.is_available())
-        device = "cuda" if use_cuda else "cpu"
+        on_card = name not in _CPU_NAMES and torch.cuda.is_available()
+        device = "cuda" if on_card else "cpu"
+        if not on_card:
+            method = "cpu"
     device = torch.device(device)
-    if name == "auto":
-        name = "cuda" if device.type == "cuda" else "cpu"
-    if name == "cuda" and device.type != "cuda":
+    if method == "auto":
+        method = "cuda" if device.type == "cuda" else "cpu"
+    if method == "cuda" and device.type != "cuda":
         raise err_util.RayTraceError(
             f"method 'cuda' runs the CUDA kernels and needs a CUDA device, "
             f"got {device}")
-    return name, device
+    return method, device
+
+
+def resolve_method(problem: CreateImageProblem, compute_method: str = "auto",
+                   *, device=None) -> str:
+    """The method a ``create_image`` call on ``problem`` runs, as
+    ``raytrace_tpu``'s ``resolve_method`` names its backend (with the
+    entry points' keyword ``device``): ``cuda`` for the kernels, ``cpu``
+    for the twins, after the aliases and the device rule of
+    :func:`_route`. Cheap, so that harnesses can label their rows with what
+    really ran. The kernels have no envelope to fall back from: B1 takes
+    every geometry and any N (at N 1 it traces no segment) and B3 every K
+    the limits let through, so the answer does not depend on ``problem``,
+    which is taken for the JAX contract."""
+    return _route(compute_method, device)[0]
 
 
 def resolve_spectrum_dtype(spectrum_dtype) -> torch.dtype:
@@ -284,8 +317,9 @@ def prepare_pipeline(problem: CreateImageProblem, compute_method: str = "auto",
     config and fetch the cached whole-call pipeline of that config.
 
     The arguments are ``raytrace_tpu``'s, in its order; ``device`` (the
-    call's device: default the CUDA card where there is one) and ``eager``
-    are keyword-only. ``spectrum_dtype``: f64 (the default) or f32, the
+    call's device; without one, :func:`_route`'s rule: the card where there
+    is one, the CPU for the reference's CPU-class names) and ``eager`` are
+    keyword-only. ``spectrum_dtype``: f64 (the default) or f32, the
     JAX package's default two-float spectrum; the f32 and f64 calls of one
     problem are two configs, two cached pipelines. ``deposit``: one of
     :data:`DEPOSITS` (all run B2).
@@ -301,7 +335,7 @@ def prepare_pipeline(problem: CreateImageProblem, compute_method: str = "auto",
     (``cfg["reorder"]`` says whether it was built: a call with no rays has
     nothing to sort).
     """
-    name, dev = resolve_method(compute_method, device)
+    name, dev = _route(compute_method, device)
     check_deposit(deposit)
     return _prepare(problem, name, dev, chunk_size, c, reorder, eager=eager,
                     spectrum_dtype=spectrum_dtype)
@@ -331,7 +365,8 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
     skip = problem.N_parallel
     B_total = (len(range(problem.N_start, Nt, skip))
                if problem.N_start < Nt else 0)
-    chunk = max(1, min(chunk_size or DEFAULT_CHUNK[name], max(B_total, 1)))
+    chunk = max(1, min(chunk_size or DEFAULT_CHUNK[
+        "cuda" if dev.type == "cuda" else "cpu"], max(B_total, 1)))
     n_chunks = -(-B_total // chunk)
     use_emis = problem.gain[0].E0 is not None and problem.seed is None
     reorder = bool(reorder) and B_total > 0
@@ -459,7 +494,7 @@ def create_image_stream(problems, compute_method: str = "auto",
         raise err_util.RayTraceError("create_image_stream needs depth >= 1")
     check_deposit(deposit)
     if mesh is None:
-        name, dev = resolve_method(compute_method, device)
+        name, dev = _route(compute_method, device)
         feedback = _Feedback()
 
         def dispatch(problem):

@@ -101,15 +101,15 @@ def prepare_sharded(problem: CreateImageProblem, mesh,
                     spectrum_dtype=torch.float64, c: float = 0.5,
                     deposit: str = "auto", reorder: bool = False, *,
                     eager: bool = False) -> PreparedShardedCall:
-    """Validate the problem, resolve the method on the mesh (``cuda`` on a
-    CPU mesh raises, as :func:`ray_tracer.resolve_method` does), give each
-    of this rank's mesh entries its stride of the rays and prepare each
-    entry's call. The arguments are ``raytrace_tpu``'s, in its order
+    """Validate the problem, resolve the method on the mesh (the entries
+    name their devices; ``cuda`` on a CPU mesh raises, as a call does), give
+    each of this rank's mesh entries its stride of the rays and prepare
+    each entry's call. The arguments are ``raytrace_tpu``'s, in its order
     (``spectrum_dtype`` and ``deposit`` as in
     :func:`ray_tracer.prepare_pipeline`); ``eager`` is keyword-only, as
     there."""
     mesh = make_mesh(devices=mesh)
-    method = ray_tracer.resolve_method(compute_method, mesh[0])[0]
+    method = ray_tracer._route(compute_method, mesh[0])[0]
     ray_tracer.check_deposit(deposit)
     src = ray_tracer._validate(problem)[1]
     D = len(mesh)
@@ -187,7 +187,7 @@ class MeshRunner:
                  spectrum_dtype=torch.float64):
         self.mesh = make_mesh(devices=mesh)
         self.compute_method = compute_method
-        ray_tracer.resolve_method(compute_method, self.mesh[0])
+        ray_tracer._route(compute_method, self.mesh[0])
         ray_tracer.resolve_spectrum_dtype(spectrum_dtype)
         self.chunk_size, self.c = chunk_size, c
         self.spectrum_dtype = spectrum_dtype

@@ -203,7 +203,6 @@ MESH_REL = 1e-12       # a sharded call against the 1-card call
 SCALE_FLAT = 1.10      # scale64's peak allocated bytes over scale16's
 GRAPH_MEMORY_FLOOR = 256 * 2 ** 20  # reserved beyond the graphs' pools:
 GRAPH_MEMORY_SHARE = 0.10           # at most the larger of these two
-TWIN_CHUNK = 1 << 20   # the kernels' chunk, for the twins on the card
 
 #: the last line's keys beside the headline
 SUMMARY_KEYS = (
@@ -353,11 +352,11 @@ def _row_stats(prefix: str, totals, n_rays: int) -> dict:
 
 def _twin(ctx: _Ctx, source, scale):
     """The plain twins' ``(image, I_ang)`` of a fresh unit on the bench's
-    device, in the kernels' chunks, and the seconds the call took."""
+    device (on the card in the kernels' chunks), and the seconds the call
+    took."""
     p = fresh_problem(source, scale)
     t0 = time.perf_counter()
-    out = create_image(p, "cpu", device=ctx.dev, chunk_size=TWIN_CHUNK,
-                       spectrum_dtype=ctx.spectrum,
+    out = create_image(p, "cpu", device=ctx.dev, spectrum_dtype=ctx.spectrum,
                        failed_ray_path=ctx.failed_ray_path)
     return out, time.perf_counter() - t0
 

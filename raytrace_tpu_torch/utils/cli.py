@@ -7,7 +7,14 @@ Usage (the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
                            host runs -- cpu, plus cuda with a CUDA device).
                            cuda runs the CUDA kernels, cpu their plain
                            PyTorch twins on the CPU; the reference's method
-                           names are accepted as aliases
+                           names and raytrace_tpu's are accepted as
+                           aliases: its CPU-class names (threads, openmp,
+                           kokkos-serial/openmp/thread) run on the CPU,
+                           lax, lax-exact and openacc the twins on the card
+                           (on the CPU without one). A row is labelled
+                           requested->run where the method that runs has
+                           another name, with @cuda where the twins run on
+                           the card (lax->cpu@cuda)
       -iterations=N        timed calls per method (default 5)
       -scale=S             problem-size scale factor (default 1.0)
       -spectrum=f64|f32    the spectrum's precision (default f64, the
@@ -47,7 +54,8 @@ Usage (the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
                            the reference's MPI protocol does, and rank 0
                            prints. Ranks run on the card
                            (cuda:(rank % device count), CUDA processes can
-                           share one) unless -methods=cpu asks for the CPU.
+                           share one) unless every method runs on the CPU
+                           (-methods=cpu or the other CPU-class names).
                            With a card for every rank the group is
                            gloo and NCCL (a sharded call's image is summed
                            over the ranks on the cards), else gloo alone;
@@ -73,7 +81,7 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.io.loader import load_input
-from raytrace_tpu_torch.models.ray_tracer import (available_methods,
+from raytrace_tpu_torch.models.ray_tracer import (_route, available_methods,
                                                   create_image,
                                                   create_image_stream,
                                                   prepare_pipeline,
@@ -264,9 +272,13 @@ def run_tests(filename: str, options: Options) -> int:
     rows = []
     out = {}
     for requested in methods:
-        method, device = resolve_method(requested)
-        device = distributed.rank_device(device.type != "cuda")
+        # the row names what runs, as raytrace_tpu's CLI names it; the
+        # twins on a card say so, since their method is called cpu
+        method = resolve_method(problem, requested)
+        device = distributed.rank_device(_route(requested)[1].type != "cuda")
         label = requested if requested == method else f"{requested}->{method}"
+        if method == "cpu" and device.type == "cuda":
+            label += "@cuda"
         pout.write(f"Running {label} on {device}, spectrum "
                    f"{options.spectrum}\n")
         # warmup (builds the kernels)
@@ -357,7 +369,7 @@ def _launch_process_group(argv, options: Options) -> int:
     The kernels are built here first when a method runs them, so that P
     ranks do not start P builds of the same sources."""
     methods = options.methods or available_methods()
-    if any(resolve_method(m)[0] == "cuda" for m in methods):
+    if any(_route(m)[0] == "cuda" for m in methods):
         from raytrace_tpu_torch.ops import cuda_lib
 
         cuda_lib.load_library()
@@ -407,7 +419,7 @@ def main(argv=None) -> int:
         # src/MPI_helpers.h:9-11); the ranks share the host's cores unless
         # OMP_NUM_THREADS says how many each takes
         methods = options.methods or available_methods()
-        distributed.startup(cpu=all(resolve_method(m)[1].type != "cuda"
+        distributed.startup(cpu=all(_route(m)[1].type != "cuda"
                                     for m in methods))
         if "OMP_NUM_THREADS" not in os.environ:
             torch.set_num_threads(max(1, (os.cpu_count() or 1)

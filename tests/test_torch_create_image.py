@@ -13,6 +13,7 @@ from raytrace_tpu.testing import synthetic_problem as jax_synthetic
 from raytrace_tpu.utils.errors import RayTraceError as JaxRayTraceError
 
 from raytrace_tpu_torch import create_image, load_input
+from raytrace_tpu_torch.models import ray_tracer
 from raytrace_tpu_torch.models.ray_tracer import (generate_ray_indices,
                                                   resolve_method)
 from raytrace_tpu_torch.testing import synthetic_problem
@@ -169,14 +170,20 @@ def test_single_segment_problem():
 
 
 def test_method_resolution():
-    assert resolve_method("cpu") == ("cpu", torch.device("cpu"))
-    assert resolve_method("openmp", "cpu")[0] == "cpu"
-    assert resolve_method("auto", "cpu")[0] == "cpu"
-    assert resolve_method("kokkos-cuda", "cuda")[0] == "cuda"
+    """``resolve_method(problem, name, *, device)`` names the method a call
+    runs, as ``raytrace_tpu``'s does; ``_route`` gives it with its
+    device."""
+    p = synthetic_problem()
+    assert resolve_method(p, "cpu") == "cpu"
+    assert ray_tracer._route("cpu") == ("cpu", torch.device("cpu"))
+    assert resolve_method(p, "openmp", device="cpu") == "cpu"
+    assert resolve_method(p, "auto", device="cpu") == "cpu"
+    assert resolve_method(p, "kokkos-cuda", device="cuda") == "cuda"
     with pytest.raises(RayTraceError):
-        resolve_method("cuda", "cpu")  # the kernels need a CUDA device
+        # the kernels need a CUDA device
+        resolve_method(p, "cuda", device="cpu")
     with pytest.raises(RayTraceError):
-        resolve_method("no-such-method")
+        resolve_method(p, "no-such-method")
 
 
 @pytest.mark.parametrize("bad", ["negative", "nan"])

@@ -475,22 +475,6 @@ def test_deposit_names():
             call()
 
 
-@pytest.mark.parametrize("name,want", [("pallas", "cuda"), ("lax", "cpu"),
-                                       ("lax-exact", "cpu")])
-def test_jax_method_names(name, want):
-    """``pallas`` names the kernels, ``lax`` and ``lax-exact`` the twins
-    on the call's device."""
-    if want == "cuda":
-        with pytest.raises(RayTraceError, match="needs a CUDA device"):
-            ray_tracer.resolve_method(name, "cpu")
-        assert ray_tracer._METHOD_ALIASES[name] == "cuda"
-    else:
-        assert ray_tracer.resolve_method(name) == ("cpu",
-                                                   torch.device("cpu"))
-        img, _ = create_image(synthetic_problem(**SMALL), name)
-        assert np.isfinite(img).all()
-
-
 def test_f32_and_f64_are_two_cached_pipelines():
     """The spectrum dtype is part of the pipeline cache's key: an f32 and
     an f64 call of one problem are two configs; each is found again."""

@@ -624,3 +624,39 @@ def test_graph_cache_reserves_its_pools(cuda):
             bench.GRAPH_MEMORY_SHARE * torch.cuda.max_memory_allocated(cuda))
     assert reserved[1] - reserved[0] <= graphs[0].pool_bytes + 2 * 2 ** 20
     ray_tracer.clear_pipeline_cache()
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_lax_runs_the_twins_on_the_card(cuda, seeded):
+    """``lax`` and ``lax-exact`` with no device run the plain twins on the
+    card, from Python (no graph), and launch no kernel; each image is the
+    kernels' call's within 1e-12, and so is a ``lax`` stream's at depth 2.
+    The reference's CPU-class names stay on the CPU."""
+    from raytrace_tpu_torch import create_image, create_image_stream
+    from raytrace_tpu_torch.models import ray_tracer
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    wrappers = (trace_kernel, deposit_kernel, amplify_kernel)
+    p = synthetic_problem(seeded=seeded)
+    want = create_image(p, "cuda")
+    for name in ("lax", "lax-exact", "openacc"):
+        assert ray_tracer._route(name) == ("cpu", torch.device("cuda"))
+        assert ray_tracer.resolve_method(p, name) == "cpu"
+        before = [w.launch_count for w in wrappers]
+        got = create_image(p, name)
+        assert [w.launch_count for w in wrappers] == before
+        pipe = next(reversed(ray_tracer._PIPELINE_CACHE.values()))
+        assert isinstance(pipe, ray_tracer._EagerPipeline)
+        assert pipe.cfg["device"] == card and not pipe.cfg["graph"]
+        for g, w in zip(got, want):
+            assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
+    before = [w.launch_count for w in wrappers]
+    yields = list(create_image_stream([p, p, p], "lax", depth=2))
+    assert len(yields) == 3
+    for got in yields:
+        for g, w in zip(got, want):
+            assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
+    assert [w.launch_count for w in wrappers] == before
+    for name in ("cpu", "threads", "openmp", "kokkos-serial",
+                 "kokkos-openmp", "kokkos-thread"):
+        assert ray_tracer._route(name) == ("cpu", torch.device("cpu"))
