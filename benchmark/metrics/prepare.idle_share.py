@@ -1,0 +1,10 @@
+"""``prepare.idle_share``: over the traced stretch, the share of its wall
+time in which the card is idle while the host is inside the program's
+``prepare`` span (its validation, the tables' packing, the static config and
+the pipeline cache's lookup), in %; on a mesh the mean over its cards
+(``spans.idle_under``). None off the card, or where the span did not run in
+the stretch."""
+
+from benchmark.spans import idle_share_reader
+
+read = idle_share_reader("prepare")

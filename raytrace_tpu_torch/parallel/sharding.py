@@ -52,7 +52,13 @@ mesh with one ``psum`` at the end of the call. Here:
   own failed rays (the reference's per-rank ``write_failures``).
 * **Marks**: on CUDA a call records timing events (each card's start,
   the end of each entry's first and last turn, the reduction), which
-  :func:`timeline` reads once the call is finalized.
+  :func:`timeline` reads once the call is finalized; the finalize itself
+  records the reduction's device seconds as the profiler's
+  ``mesh.reduce``.
+* **Spans**: ``utils.timer.profiler`` times the call's host boundaries,
+  as a single call's: ``prepare`` (:func:`prepare_sharded`, the tables
+  packed once in ``pack``), ``dispatch`` (every entry's turns, the
+  reduction's enqueue and the readback's), ``wait`` and ``finalize``.
 """
 
 from __future__ import annotations
@@ -108,35 +114,37 @@ def prepare_sharded(problem: CreateImageProblem, mesh,
     (``spectrum_dtype`` and ``deposit`` as in
     :func:`ray_tracer.prepare_pipeline`); ``eager`` is keyword-only, as
     there."""
-    mesh = make_mesh(devices=mesh)
-    method = ray_tracer._route(compute_method, mesh[0])[0]
-    ray_tracer.check_deposit(deposit)
-    src = ray_tracer._validate(problem)[1]
-    D = len(mesh)
-    G = distributed.size() * D
-    first = distributed.rank() * D
-    step = problem.N_parallel
-    shards = tuple(
-        (dev, dataclasses.replace(
-            problem, N_start=problem.N_start + (first + d) * step,
-            N_parallel=G * step, image=None, I_ang=None))
-        for d, dev in enumerate(mesh))
-    packed = ray_tracer._pack(problem, src, mesh[0])
-    entries = [ray_tracer._prepare(sp, method, dev, chunk_size, c, reorder,
-                                   readback=False, eager=eager, packed=packed,
-                                   spectrum_dtype=spectrum_dtype)
-               for dev, sp in shards]
-    cfgs = tuple(e.cfg for e in entries)
-    cfg = {k: cfgs[0][k] for k in ("N", "K", "method", "use_emis",
-                                   "spectrum_dtype", "dims")}
-    cfg.update(reorder=any(e["reorder"] for e in cfgs),
-               launches={n: sum(e["launches"][n] for e in cfgs)
-                         for n in cfgs[0]["launches"]},
-               entries=cfgs)
-    return PreparedShardedCall(problem=problem, method=method, mesh=mesh,
-                               shards=shards,
-                               pipeline=tuple(e.pipeline for e in entries),
-                               operands=(packed[0],), cfg=cfg)
+    with profiler.span("prepare"):
+        mesh = make_mesh(devices=mesh)
+        method = ray_tracer._route(compute_method, mesh[0])[0]
+        ray_tracer.check_deposit(deposit)
+        src = ray_tracer._validate(problem)[1]
+        D = len(mesh)
+        G = distributed.size() * D
+        first = distributed.rank() * D
+        step = problem.N_parallel
+        shards = tuple(
+            (dev, dataclasses.replace(
+                problem, N_start=problem.N_start + (first + d) * step,
+                N_parallel=G * step, image=None, I_ang=None))
+            for d, dev in enumerate(mesh))
+        packed = ray_tracer._pack(problem, src, mesh[0])
+        entries = [ray_tracer._prepare(sp, method, dev, chunk_size, c,
+                                       reorder, readback=False, eager=eager,
+                                       packed=packed,
+                                       spectrum_dtype=spectrum_dtype)
+                   for dev, sp in shards]
+        cfgs = tuple(e.cfg for e in entries)
+        cfg = {k: cfgs[0][k] for k in ("N", "K", "method", "use_emis",
+                                       "spectrum_dtype", "dims")}
+        cfg.update(reorder=any(e["reorder"] for e in cfgs),
+                   launches={n: sum(e["launches"][n] for e in cfgs)
+                             for n in cfgs[0]["launches"]},
+                   entries=cfgs)
+        return PreparedShardedCall(
+            problem=problem, method=method, mesh=mesh, shards=shards,
+            pipeline=tuple(e.pipeline for e in entries),
+            operands=(packed[0],), cfg=cfg)
 
 
 class _Marks(NamedTuple):
@@ -211,6 +219,11 @@ class MeshRunner:
         prep = prepare_sharded(problem, self.mesh, self.compute_method,
                                self.chunk_size, self.spectrum_dtype, self.c,
                                "auto", self.reorder, eager=self.eager)
+        with profiler.span("dispatch"):
+            return self._enqueue(prep)
+
+    def _enqueue(self, prep: PreparedShardedCall) -> _ShardedCall:
+        """:meth:`dispatch` of a prepared call."""
         cards = [dev for dev in dict.fromkeys(prep.mesh) if dev.type == "cuda"]
         entries = prep.cfg["entries"]
 
@@ -307,48 +320,55 @@ def create_image_sharded(problem: CreateImageProblem, mesh,
     Raises :class:`RayTraceError` on invalid input or when a ray fails
     anywhere, after each rank dumps its own failed rays."""
     profiler.start("create_image-sharded")
-    dev = None
     try:
         ray_tracer.check_deposit(deposit)
         runner = MeshRunner(mesh, compute_method, chunk_size, c,
                             spectrum_dtype=spectrum_dtype)
-        dev = runner.mesh[0]
         return _finalize_sharded(runner.dispatch(problem), failed_ray_path)
     finally:
-        profiler.stop("create_image-sharded", dev)
+        # closes after the call's own wait for its readback
+        profiler.stop("create_image-sharded")
 
 
 def _finalize_sharded(call: _ShardedCall, failed_ray_path: str
                       ) -> tuple[np.ndarray, np.ndarray]:
-    """Wait for the reduced readback, sum it over the ranks, then the
-    failure path and the layout contract, as
-    ``ray_tracer._finalize_call``; the entries' graphs may run again
-    after."""
+    """Wait for the reduced readback (the ``wait`` span), then in the
+    ``finalize`` span the reduction's device seconds (``mesh.reduce``, on
+    CUDA, from the call's own marks), the sum over the ranks, the failure
+    path and the layout contract, as ``ray_tracer._finalize_call``; the
+    entries' graphs may run again after."""
     problem = call.prep.problem
     try:
-        if call.done is not None:
-            call.done.synchronize()
-        host = call.out.numpy()
-        if not call.ranks_summed:
-            (host,) = collectives.host_sum_arrays([host])
-        bits = ray_tracer.fail_bits(host[-ray_tracer.N_FLAGS:])
-        if bits:
-            # this rank's failed rays over its shards, in the single
-            # call's (ascending) order
-            gidx = np.sort(np.concatenate(
-                [ray_tracer.failed_rays(sp, c.codes)
-                 for (_dev, sp), c in zip(call.prep.shards, call.calls)]))
-            ray_tracer.raise_failure(problem,
-                                     ray_tracer._source_beam(problem),
-                                     call.prep.cfg["method"], gidx, bits,
-                                     failed_ray_path)
-        n_image = call.calls[0].n_image
-        image = host[:n_image].copy()
-        i_ang = host[n_image:-ray_tracer.N_FLAGS].copy()
+        with profiler.span("wait"):
+            if call.done is not None:
+                call.done.synchronize()
+        with profiler.span("finalize"):
+            if call.marks is not None:
+                # both marks precede the readback's event: complete now
+                profiler.add("mesh.reduce", 1e-3 * call.marks.reduce[0]
+                             .elapsed_time(call.marks.reduce[1]))
+            host = call.out.numpy()
+            if not call.ranks_summed:
+                (host,) = collectives.host_sum_arrays([host])
+            bits = ray_tracer.fail_bits(host[-ray_tracer.N_FLAGS:])
+            if bits:
+                # this rank's failed rays over its shards, in the single
+                # call's (ascending) order
+                gidx = np.sort(np.concatenate(
+                    [ray_tracer.failed_rays(sp, c.codes)
+                     for (_dev, sp), c in zip(call.prep.shards,
+                                              call.calls)]))
+                ray_tracer.raise_failure(problem,
+                                         ray_tracer._source_beam(problem),
+                                         call.prep.cfg["method"], gidx, bits,
+                                         failed_ray_path)
+            n_image = call.calls[0].n_image
+            image = host[:n_image].copy()
+            i_ang = host[n_image:-ray_tracer.N_FLAGS].copy()
+            problem.image, problem.I_ang = image, i_ang
     finally:
         for c in call.calls:
             ray_tracer._release(c)
-    problem.image, problem.I_ang = image, i_ang
     return image, i_ang
 
 

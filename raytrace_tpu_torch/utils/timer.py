@@ -8,6 +8,15 @@ table. ``profiler.scope(name, annotate=True)`` also opens the region as a
 ``torch.profiler.record_function`` (and, on a CUDA device, an NVTX range),
 so that it shows up in ``torch.profiler`` traces.
 
+``profiler.span(name)`` is the program's own region at a host boundary of a
+call (``prepare``, ``pack``, ``dispatch``, ``capture``, ``wait``,
+``finalize``): it never synchronises a device, closes when its body raises,
+and opens a ``torch.profiler`` annotation only while a profiler records, so
+that with none recording it costs that check, two clock reads and the
+totals' update.
+``profiler.add(name, seconds)`` records a duration measured elsewhere (a
+device interval read from CUDA events, ``mesh.reduce``).
+
 Work on a CUDA device runs asynchronously, so a region stopped with a CUDA
 ``device`` first synchronises that device: the recorded time then covers the
 device work the region enqueued, not only the enqueue.
@@ -42,6 +51,37 @@ def _annotation(name: str, device) -> ExitStack:
     return stack
 
 
+class _Span:
+    """A :meth:`Profiler.span` region of one name (made once a name and
+    reused: spans of one name do not nest). Its start is kept in the
+    profiler's ``_open`` while it is open, its annotation, when a profiler
+    records, around the region."""
+
+    __slots__ = ("prof", "name", "annotation")
+
+    def __init__(self, prof: "Profiler", name: str):
+        self.prof, self.name, self.annotation = prof, name, None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        if self.prof.enabled:
+            self.prof._open[self.name] = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        prof, name = self.prof, self.name
+        t0 = prof._open.pop(name, None)
+        if t0 is not None:
+            prof.totals[name] += time.perf_counter() - t0
+            prof.counts[name] += 1
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+            self.annotation = None
+        return False
+
+
 class Profiler:
     """Accumulating named-scope wall-clock profiler."""
 
@@ -49,6 +89,7 @@ class Profiler:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self._open: dict[str, float] = {}
+        self._spans: dict[str, _Span] = {}
         self.enabled = True
 
     def start(self, name: str) -> None:
@@ -76,6 +117,23 @@ class Profiler:
         else:
             yield
         self.stop(name, device)
+
+    def span(self, name: str) -> _Span:
+        """A host span of the program: recorded like :meth:`scope`, also
+        when its body raises; it never synchronises a device, and it is a
+        ``torch.profiler`` annotation only while a profiler records. Spans
+        of one name do not nest."""
+        span = self._spans.get(name)
+        if span is None:
+            span = self._spans[name] = _Span(self, name)
+        return span
+
+    def add(self, name: str, seconds: float) -> None:
+        """Record ``seconds`` measured elsewhere (device events) as one
+        region of ``name``."""
+        if self.enabled:
+            self.totals[name] += seconds
+            self.counts[name] += 1
 
     def reset(self) -> None:
         self.totals.clear()
