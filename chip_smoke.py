@@ -29,7 +29,14 @@ fails (non-zero exit, no result line) if any phase fails:
    the twin, counts included; amplify B3 on that seeded chunk traced by
    B1 with its seed factors (log-gain bitwise, spectrum within 1e-13
    relative, flags identical, and both flag bits from an fv with a
-   negative and a NaN entry); the binning deposit B2 on random
+   negative and a NaN entry); amplify B4, the ASE path's f64 emissivity
+   amplify, on the whole ASE call traced by B1 and on a 2^20-ray chunk of
+   the ASE shape at ``-scale=64`` (spectrum within 1e-15 relative, flags
+   identical, both flag bits from a negative and a NaN emissivity), each
+   beside its twin, the benchmark's byte bound and its f64-issue estimate
+   from the f64 instructions of its SASS (``cuobjdump``), with nvcc's
+   registers and spills of every instantiation (none may spill); the
+   binning deposit B2 on random
    coordinates at both image shapes and at the real inputs of both shapes
    (bins bitwise equal to get_index's, image and I_ang within 1e-12
    relative of the twin), timed in turns with ``index_add_`` of the image
@@ -52,12 +59,12 @@ fails (non-zero exit, no result line) if any phase fails:
    rays, nv 82; N 3, 106x26 gain grid) with one warmup (which captures
    the call's CUDA graph; its memory pool is printed) and three timed
    calls (graph replays) each, the launches of each kernel in one call
-   counted; B1, B2 and B3 must have launched in this run;
+   counted; B1, B2, B3 and B4 must have launched in this run;
 5. with the counts at 0 again: ``create_image_stream`` at depth 2 over 4
    ASE and then 4 seeded shipped-shape units with distinct gain tables,
    without and with the reorder; every yield within 1e-12 relative L2 of
    the synchronous call on the same unit; fill, steady inter-yield seconds
-   and s/call beside the synchronous s/call; B1, B2 and B3 must have
+   and s/call beside the synchronous s/call; B1, B2, B3 and B4 must have
    launched;
 6. with P1's count at 0: the probe tool's measurement
    (``raytrace_tpu_torch.tools.gather_probe.measure``), ns per dependent
@@ -406,6 +413,7 @@ def phase_kernels(results):
     shapes = phase_trace_shapes(results)
     results["trace"]["max_abs_err"] = worst
     phase_amplify(results, shapes["seed_chunk"])
+    phase_emis(results, shapes["ase_call"])
     phase_deposit(results, shapes)
     phase_f32_kernels(results, shapes)
     phase_probe_kernel(results)
@@ -558,6 +566,187 @@ def phase_amplify(results, cell):
                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, library_ms=None)
     cell.update(Iv=got, flags=flags)
+
+
+#: the card's f64 lanes per SM (H100: 64, an FMA one instruction)
+F64_LANES_PER_SM = 64
+#: the opcodes that issue on the f64 pipe, as cuobjdump prints them
+F64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET", "MUFU.RCP64H",
+               "MUFU.RSQ64H", "F2F.F64", "F2F.F32.F64", "I2F.F64", "F2I.F64",
+               "DMMA")
+
+
+def ptxas_entries(log, name=""):
+    """``[(entry, registers, spill stores, spill loads)]`` of each compiled
+    entry whose mangled name holds ``name`` (every entry by default), from
+    nvcc's ``-Xptxas -v`` log."""
+    import re
+
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if name in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((entry, int(m.group(1))) + spills)
+            entry = None
+    return out
+
+
+def sass_f64_counts(so_path, name):
+    """The f64-pipe instructions of each kernel whose mangled name holds
+    ``name`` in the library's SASS (``cuobjdump -sass``), by opcode; None
+    where cuobjdump is missing or fails."""
+    import re
+
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                       "cuobjdump")
+    try:
+        r = subprocess.run([exe, "-sass", so_path], capture_output=True,
+                           text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if r.returncode != 0:
+        return None
+    out = {}
+    for part in r.stdout.split("Function : ")[1:]:
+        fn = part.split()[0]
+        if name not in fn:
+            continue
+        counts = {}
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z0-9_.]+)", part):
+            op = m.group(1)
+            if op.startswith(F64_OPCODES):
+                key = op.split(".")[0] if op[0] == "D" else op
+                counts[key] = counts.get(key, 0) + 1
+        out[fn] = counts
+    return out
+
+
+def max_sm_clock_hz():
+    """The card's largest SM clock (nvidia-smi ``clocks.max.sm``), in Hz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    return float(r.stdout.split()[0]) * 1e6
+
+
+def phase_emis(results, ase):
+    """B4, the ASE path's f64 emissivity amplify with the flags fused in,
+    against its twin on the card at the whole ASE call (B1's path of its
+    399,000 rays, K 52, 2 x 3 steps) and at a 2^20-ray chunk of the ASE
+    shape at ``-scale=64`` (what each card of the four-card cell amplifies
+    a chunk): spectrum within 1e-15 relative where the twin's is not zero,
+    flags identical, and both flag bits from a negative and a NaN
+    emissivity; each timed with CUDA events beside the twin, the
+    benchmark's byte bound (``amplify_roofline``'s count: 12 bytes a ray
+    and step, the tables, the f64 spectrum) and the f64-issue estimate
+    (element-steps times the kernel's f64 instructions a step, counted in
+    its SASS, over 64 f64 lanes a SM at the largest SM clock); nvcc's
+    registers and spills of every instantiation."""
+    from raytrace_tpu_torch.io.loader import scale_problem
+    from raytrace_tpu_torch.models.problem import prepare_gain
+    from raytrace_tpu_torch.ops import amplify_kernel, cuda_lib, trace_kernel
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, source_rays,
+                                            synthetic_problem)
+
+    info = cuda_lib.build_info()
+    regs = ptxas_entries(info.get("log", ""), "amplify_emis_kernel")
+    sass = sass_f64_counts(info.get("path", ""), "amplify_emis_kernel")
+    shipped = next((c for f, c in (sass or {}).items()
+                    if "amplify_emis_kernelILi2ELi3ELi2E" in f), None)
+    if not shipped:
+        fail(f"B4: no f64 instructions of the shipped instantiation read "
+             f"from the SASS of {info.get('path')} (cuobjdump)")
+    # the shipped pair instantiation: 2 frequencies x 6 steps a thread
+    dp_step = sum(shipped.values()) / 12
+    props = torch.cuda.get_device_properties(0)
+    dp_rate = F64_LANES_PER_SM * props.multi_processor_count \
+        * max_sm_clock_hz()
+    print(f"B4 registers and spills (entry, registers, spill stores, spill "
+          f"loads): {regs}; f64-pipe instructions in the shipped "
+          f"instantiation's SASS: {shipped} ({dp_step:.2f} a step, static: "
+          f"both branches); f64 issue rate {dp_rate:.4e}/s", flush=True)
+    if not regs or any(r[2] or r[3] for r in regs):
+        fail(f"B4: registers and spills {regs}")
+
+    p64 = synthetic_problem(**ASE_SHAPE)
+    scale_problem(p64, 64)
+    g64 = prepare_gain(p64.gain, DEV)
+    res64 = trace_kernel.trace_batch(source_rays(p64, 1 << 20, DEV), p64.N,
+                                     p64.euv_beam.dz, g64, 1)
+    cells = {"ase_call": (ase["p"], ase["res"], ase["gain"]),
+             "scale64_chunk": (p64, res64, g64)}
+    out = {}
+    for name, (p, res, gain) in cells.items():
+        gv = gain.gv[1:]
+        args = (res.ivl, res.gvl, res.evl, gv)
+        got, flags = amplify_kernel.amplify_emis(*args)
+        want, want_flags = amplify_kernel.amplify_emis_plain(*args)
+        torch.cuda.synchronize()
+        nz = want != 0
+        rel = ((got - want)[nz].abs() / want[nz].abs()).max().item()
+        same = torch.equal(got.view(torch.int64), want.view(torch.int64))
+        if (rel > 1e-15 or not torch.equal(got == 0, ~nz)
+                or not torch.equal(flags, want_flags) or flags.any()):
+            fail(f"B4 {name}: spectrum max rel {rel}, flags equal "
+                 f"{torch.equal(flags, want_flags)}, flagged "
+                 f"{int((flags != 0).sum())}")
+        B, K = got.shape
+        nseg, nsub = res.ivl.shape[1], res.ivl.shape[2]
+        T = nseg * nsub
+        if name == "ase_call":
+            evl_bad = res.evl.clone()
+            evl_bad[3] = -evl_bad[3]
+            evl_bad[5, 0, 1] = float("nan")
+            bad = (res.ivl, res.gvl, evl_bad, gv)
+            _, fb = amplify_kernel.amplify_emis(*bad)
+            _, wb = amplify_kernel.amplify_emis_plain(*bad)
+            if (not torch.equal(fb, wb) or fb[3] != amplify_kernel.FLAG_NEG
+                    or fb[5] != amplify_kernel.FLAG_NAN):
+                fail(f"B4 flags with a negative and a NaN emissivity: equal "
+                     f"{torch.equal(fb, wb)}, rays 3 and 5 {fb[3].item()} "
+                     f"{fb[5].item()}")
+        gl = (res.gvl.double()[..., None] * gv[torch.arange(nseg, device=DEV)[
+            None, :, None], res.ivl.long()].double()).abs()
+        taylor = (gl < 1e-3).double().mean().item()
+        ms = cuda_ms(lambda: amplify_kernel.amplify_emis(*args), 20)
+        plain_ms = cuda_ms(lambda: amplify_kernel.amplify_emis_plain(*args),
+                           3)
+        nx = max(len(g.x) for g in p.gain)
+        ny = max(len(g.y) for g in p.gain)
+        nbytes = B * T * 12 + 4 * nseg * nx * ny * K + B * K * 8
+        b_ms, b_by = bound(nbytes, f64_ops=B * K * T * 8)
+        steps = B * K * T
+        issue_ms = steps * dp_step / dp_rate * 1e3
+        print(f"B4 {name} B={B} K={K} T={T}: spectrum max rel {rel:.3e} "
+              f"against the twin (bitwise {same}), flags identical; "
+              f"|gl| < 1e-3 in {taylor:.4f} of the element-steps; kernel "
+              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms; {nbytes} bytes: "
+              f"bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.4f} of it "
+              f"reached; {steps} element-steps, f64-issue estimate "
+              f"{issue_ms:.4f} ms ({issue_ms / ms:.3f} of it reached)",
+              flush=True)
+        out[name] = dict(B=B, K=K, T=T, max_rel=rel, bitwise=same, ms=ms,
+                         plain_ms=plain_ms, bytes=nbytes, bound_ms=b_ms,
+                         bound_by=b_by, element_steps=steps,
+                         taylor_share=taylor, issue_ms=issue_ms)
+    record["amplify_emis"] = dict(out, registers=regs, sass_f64=sass,
+                                  dp_per_step=dp_step, dp_rate=dp_rate)
+    a = out["ase_call"]
+    results["amplify_emis"] = dict(ms=a["ms"], plain_ms=a["plain_ms"],
+                                   bound_ms=a["bound_ms"],
+                                   bound_by=a["bound_by"], library_ms=None,
+                                   max_rel_err=a["max_rel"])
 
 
 def run_stats(bins, K, tile=32):
@@ -1143,6 +1332,7 @@ def production_loops(nprocs=2, extra=()):
 PROFILE_TAGS = (("trace", "trace_kernel"),
                 ("bin_deposit", "bin_deposit_kernel"),
                 ("amplify", "amplify_seeded_kernel"),
+                ("amplify_emis", "amplify_emis_kernel"),
                 ("bin_deposit_f32", "bin_deposit_f32_kernel"),
                 ("amplify_f32", "amplify_seeded_f32_kernel"))
 
@@ -1182,10 +1372,11 @@ def uncounted(fn, *args, **kw):
 
 
 def path_kernels_of(p):
-    """The kernels one call of ``p`` must launch: B1 and B2, and B3 unless
-    the emissivity amplify (ASE, no seed) takes its place."""
+    """The kernels one f64 call of ``p`` must launch: B1 and B2, and B3,
+    or B4 where the emissivity amplify (ASE, no seed) takes its place."""
     emis = p.gain[0].E0 is not None and p.seed is None
-    return ("trace", "bin_deposit") + (() if emis else ("amplify",))
+    return ("trace", "bin_deposit") + (("amplify_emis",) if emis
+                                       else ("amplify",))
 
 
 def launched(what, names, fn, *args, **kw):
@@ -2095,7 +2286,7 @@ MULTI_REL = 1e-12
 
 #: the kernels a call of phase 15's names must not launch
 ROUTED_KERNELS = ("trace", "bin_deposit", "amplify", "bin_deposit_f32",
-                  "amplify_f32")
+                  "amplify_f32", "amplify_emis")
 #: the reference's CPU-class names: they run on the CPU on a card host too
 CPU_CLASS = ("cpu", "threads", "openmp", "kokkos-serial", "kokkos-openmp",
              "kokkos-thread")
@@ -2725,15 +2916,16 @@ def main(argv) -> int:
     info = cuda_lib.build_info()
     print(f"kernels built in {info['seconds']:.2f} s (nvcc), loaded in "
           f"{time.perf_counter() - t0:.2f} s: {info['path']}", flush=True)
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for entry, regs, stores, loads in ptxas_entries(info.get("log", "")):
+        print(f"  ptxas: {entry}: {regs} registers, {stores} bytes spill "
+              f"stores, {loads} bytes spill loads", flush=True)
     record.update(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=info["seconds"])
     WRAPPERS.update({"trace": trace_kernel, "bin_deposit": deposit_kernel,
                      "amplify": amplify_kernel,
                      "bin_deposit_f32": deposit_kernel.F32,
                      "amplify_f32": amplify_kernel.F32,
+                     "amplify_emis": amplify_kernel.EMIS,
                      "gather_probe": gather_probe})
     path_kernels = ("trace", "bin_deposit", "amplify")
 
@@ -2746,8 +2938,11 @@ def main(argv) -> int:
     results = {}
     phase_kernels(results)
 
-    outs, launches = run_path("main path", phase_main_path, path_kernels)
-    _, stream_launches = run_path("stream path", phase_stream, path_kernels)
+    # the ASE calls of these two paths run B4
+    outs, launches = run_path("main path", phase_main_path,
+                              path_kernels + ("amplify_emis",))
+    _, stream_launches = run_path("stream path", phase_stream,
+                                  path_kernels + ("amplify_emis",))
     _, probe_launches = run_path("probe path", phase_probe_path,
                                  ("gather_probe",))
     launches.update(probe_launches)
@@ -2783,6 +2978,8 @@ def main(argv) -> int:
              "raytrace_tpu/ops/deposit_kernel.py:76"),
             ("amplify", "amplify.cu",
              "raytrace_tpu/ops/pallas_amplify.py:123"),
+            ("amplify_emis", "emissivity.cu",
+             "none: XLA, raytrace_tpu/ops/spectrum.py:156-183"),
             ("bin_deposit_f32", "deposit.cu",
              "raytrace_tpu/ops/deposit_kernel.py:76"),
             ("amplify_f32", "amplify.cu",

@@ -9,12 +9,13 @@ PyTorch, following ``raytrace_tpu.models.ray_tracer``:
 * the N_start/N_parallel stride contract (RayTraceImage.cpp:300-328);
 * per chunk: entry rays -> trace -> amplify (seeded: the per-ray seed
   factor into kernel B3, which forms the entry spectrum and flags bad
-  spectra) -> binning deposit (kernel B2: bins, scale and the I_ang sum in
+  spectra; ASE in f64: kernel B4, from a zero entry spectrum, which flags
+  bad spectra too) -> binning deposit (kernel B2: bins, scale and the I_ang sum in
   one pass) into the call's f64 image and I_ang accumulators;
 * the spectrum in f64 (the port's default, the reference's arithmetic) or,
   with ``spectrum_dtype`` float32, in ``raytrace_tpu``'s default f32
   two-float form (the f32 instantiations of B3 and B2, the f32 emissivity
-  amplify); the image and I_ang accumulate in f64 either way;
+  amplify in plain PyTorch); the image and I_ang accumulate in f64 either way;
 * per-ray failure codes -1/-2/-3 -> bitmask on the device -> (only when a
   bit is set) the codes, failed-ray dump and abort (RayTraceImage.cpp:
   427-430).
@@ -46,7 +47,7 @@ a CUDA device the call runs with that device current
 (``cuda_lib.device_guard``), whichever device the caller had made current.
 
 Methods: ``cuda`` runs the hand-written kernels (trace B1, deposit B2,
-amplify B3) on a CUDA device; ``cpu`` runs their plain PyTorch twins, from
+amplify B3 and B4) on a CUDA device; ``cpu`` runs their plain PyTorch twins, from
 Python, on the CPU or on a card. The reference's method names and
 ``raytrace_tpu``'s (``pallas``; ``lax`` and ``lax-exact``) map onto these
 two (``_METHOD_ALIASES``), and one rule (:func:`_route`) gives the device of
@@ -69,6 +70,7 @@ change every iteration (Readme.txt:43).
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import OrderedDict, deque
 from typing import NamedTuple
@@ -81,7 +83,7 @@ from raytrace_tpu_torch.models.problem import (
     pack_arrays, seed_arrays, seed_from_tensors, seed_scalars, unpack_arrays)
 from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
                                     deposit_kernel, seed as seed_ops,
-                                    spectrum, stepper, trace_kernel)
+                                    stepper, trace_kernel)
 from raytrace_tpu_torch.structures import CreateImageProblem
 from raytrace_tpu_torch.utils import errors as err_util
 from raytrace_tpu_torch.utils.timer import profiler
@@ -381,6 +383,8 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
     buf, layout = packed or _pack(problem, src, dev)
     kernels = n_chunks if name == "cuda" else 0
     f32 = kernels if sdtype == torch.float32 else 0
+    # B4, the emissivity amplify, takes the f64 spectrum alone
+    emis = kernels if use_emis and sdtype == torch.float64 else 0
     n_image = beam.nx * beam.ny * beam.nv
     cfg = dict(
         name=name, device=dev, N=problem.N, dz=float(beam.dz), K=beam.nv,
@@ -397,7 +401,8 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
         launches=dict(trace=kernels, bin_deposit=kernels,
                       amplify=0 if use_emis else kernels,
                       bin_deposit_f32=f32,
-                      amplify_f32=0 if use_emis else f32))
+                      amplify_f32=0 if use_emis else f32,
+                      amplify_emis=emis))
     return PreparedCall(pipeline=_pipeline(cfg), operands=(buf,), cfg=cfg,
                         timer_name=timer_name + "-" + name)
 
@@ -762,13 +767,19 @@ def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
     dims, use_emis = cfg["dims"], cfg["use_emis"]
     sdtype = cfg["spectrum_dtype"]
     if cfg["name"] == "cuda":
-        trace, gain_only, deposit = (trace_kernel.trace_batch,
-                                     amplify_kernel.amplify_gain,
-                                     deposit_kernel.bin_deposit)
+        trace, gain_only, emis, deposit = (trace_kernel.trace_batch,
+                                           amplify_kernel.amplify_gain,
+                                           amplify_kernel.amplify_emis,
+                                           deposit_kernel.bin_deposit)
     else:
-        trace, gain_only, deposit = (stepper.trace_batch_plain,
-                                     amplify_kernel.amplify_gain_plain,
-                                     deposit_kernel.bin_deposit_plain)
+        trace, gain_only, emis, deposit = (stepper.trace_batch_plain,
+                                           amplify_kernel.amplify_gain_plain,
+                                           amplify_kernel.amplify_emis_plain,
+                                           deposit_kernel.bin_deposit_plain)
+    if sdtype != torch.float64:
+        # B4 is the f64 spectrum's: the f32 emissivity amplify is plain
+        emis = functools.partial(amplify_kernel.amplify_emis_plain,
+                                 dtype=sdtype)
 
     # one upload of the problem tables per call
     tables = _tables(cfg, buf)
@@ -807,10 +818,8 @@ def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
             # back to natural order: the next call's sort key
             counts.narrow(0, start, n).index_copy_(0, perm, cnt)
         if use_emis:
-            Iv = spectrum.amplify(
-                res, torch.zeros((n, K), dtype=sdtype, device=dev), gv, N,
-                dtype=sdtype)
-            flags = amplify_kernel.iv_flags(Iv)
+            # from a zero entry spectrum, flagging the bad spectra
+            Iv, flags = emis(res.ivl, res.gvl, res.evl, gv)
         else:
             # the entry seed in factor form; B3 forms f * fv, masks the
             # escaped rays and flags the bad spectra
@@ -887,7 +896,8 @@ class _EagerPipeline:
 #: names of ``cfg["launches"]``, and the f32 instantiations' own counters
 _WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
              "amplify": amplify_kernel, "bin_deposit_f32": deposit_kernel.F32,
-             "amplify_f32": amplify_kernel.F32}
+             "amplify_f32": amplify_kernel.F32,
+             "amplify_emis": amplify_kernel.EMIS}
 
 
 def _launch_counts() -> dict:
@@ -908,6 +918,15 @@ def _credit(launches: dict, dev) -> None:
 #: a side stream per card to capture on when the caller's current stream
 #: is the card's default stream (CUDA captures on no default stream)
 _CAPTURE_STREAMS: dict = {}
+
+
+def _stage(staging: torch.Tensor, buf: torch.Tensor) -> None:
+    """Copy the packed tables ``buf`` into a graph's page-locked
+    ``staging`` buffer on the calling thread alone (one memcpy). PyTorch
+    splits a CPU copy of this size across its intra-op threads, and on a
+    busy host waking them takes longer than the copy and varies from call
+    to call; on a mesh the host stages every card's buffer in turn."""
+    np.copyto(staging.numpy(), buf.numpy())
 
 
 class _Graph:
@@ -934,7 +953,7 @@ class _Graph:
         t0 = time.perf_counter()
         self.staging = torch.empty(buf.shape, dtype=buf.dtype,
                                    pin_memory=True)
-        self.staging.copy_(buf)
+        _stage(self.staging, buf)
         self.ctr = torch.zeros(2, dtype=torch.int64, device=dev)
         self.prev = (torch.zeros(cfg["B_total"], dtype=torch.int32,
                                  device=dev) if cfg["reorder"] else None)
@@ -993,7 +1012,7 @@ class _Graph:
         its card, and record the ``done`` event there."""
         cfg = self.cfg
         dev = cfg["device"]
-        self.staging.copy_(buf)
+        _stage(self.staging, buf)
         done = None
         with cuda_lib.device_guard(dev):
             if self.prev is not None:

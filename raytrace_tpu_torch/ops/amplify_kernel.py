@@ -38,18 +38,30 @@ plain twin :func:`amplify_gain_plain`, CUDA tensors launch the kernel (or
 raise) on their own card. ``launch_count`` counts kernel launches of both
 instantiations, ``device_launches`` them per device, and :data:`F32` the
 f32 instantiation's alone.
+
+The ASE path's f64 amplification with gain and emissivity from a zero entry
+spectrum is kernel B4 (``csrc/emissivity.cu``), with its failure flags fused
+in as B3's: :func:`amplify_emis` dispatches as :func:`amplify_gain` does,
+to the plain twin :func:`amplify_emis_plain` (``ops/spectrum.amplify`` on a
+zero entry spectrum, then :func:`iv_flags`) for CPU tensors. It replaces no
+Pallas kernel: ``raytrace_tpu`` computes the step in XLA
+(``raytrace_tpu/ops/spectrum.py:156-183``). Its launches are counted apart,
+in :data:`EMIS`.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
-from raytrace_tpu_torch.ops import cuda_lib
+from raytrace_tpu_torch.ops import cuda_lib, spectrum
 from raytrace_tpu_torch.ops import twofloat as tf
 
 __all__ = ["amplify_gain", "amplify_gain_plain", "log_gain_plain",
            "log_gain2_plain", "iv_flags", "FLAG_NEG", "FLAG_NAN",
-           "launch_count", "device_launches", "F32"]
+           "launch_count", "device_launches", "F32", "amplify_emis",
+           "amplify_emis_plain", "EMIS"]
 
 #: flag bits per ray: some Iv < 0 (failure code -2), some Iv NaN (code -3)
 FLAG_NEG, FLAG_NAN = 1, 2
@@ -63,6 +75,8 @@ launch_count = 0
 device_launches: dict = {}
 #: the launches of the f32 instantiation (also counted above)
 F32 = cuda_lib.Launches()
+#: the launches of kernel B4, the emissivity amplify (not counted above)
+EMIS = cuda_lib.Launches()
 
 _DTYPES = (torch.float64, torch.float32)
 
@@ -223,3 +237,83 @@ def _launch(lib, f, fv, escaped, ivl, gvl, gv, stream, log_gain=False,
             None if gl is None else gl.data_ptr(), stream)
     cuda_lib.check(rc, name)
     return Iv, flags[:B], gl
+
+
+def amplify_emis_plain(ivl: torch.Tensor, gvl: torch.Tensor,
+                       evl: torch.Tensor, gv: torch.Tensor,
+                       dtype: torch.dtype = torch.float64):
+    """Plain twin of kernel B4: ``(Iv, flags)`` with ``Iv`` the emissivity
+    amplify (``spectrum.amplify``) of a zero entry spectrum along the path
+    ``ivl``, ``gvl``, ``evl`` through the tables ``gv``, and ``flags =
+    iv_flags(Iv)``."""
+    B, nseg = ivl.shape[0], ivl.shape[1]
+    path = SimpleNamespace(ivl=ivl, gvl=gvl, evl=evl)
+    Iv0 = torch.zeros((B, gv.shape[2]), dtype=dtype, device=ivl.device)
+    Iv = spectrum.amplify(path, Iv0, gv, nseg + 1, dtype=dtype)
+    return Iv, iv_flags(Iv)
+
+
+def _check_emis(ivl, gvl, evl, gv):
+    if ivl.dim() != 3:
+        raise ValueError("amplify_emis: ivl must be [B, nseg, nsub]")
+    B, nseg, nsub = ivl.shape
+    dev = ivl.device
+    for name, t, tdtype in (("ivl", ivl, torch.int32),
+                            ("gvl", gvl, torch.float32),
+                            ("evl", evl, torch.float32)):
+        if (t.dtype != tdtype or tuple(t.shape) != (B, nseg, nsub)
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"amplify_emis: {name} must be a contiguous "
+                             f"{tdtype} [{B}, {nseg}, {nsub}] tensor on "
+                             f"{dev}")
+    if (gv.dtype != torch.float32 or gv.dim() != 3 or gv.shape[0] != nseg
+            or gv.device != dev or not gv.is_contiguous()):
+        raise ValueError(f"amplify_emis: gv must be a contiguous float32 "
+                         f"[{nseg}, cells, K] tensor on {dev}")
+    return B, gv.shape[2]
+
+
+def amplify_emis(ivl: torch.Tensor, gvl: torch.Tensor, evl: torch.Tensor,
+                 gv: torch.Tensor):
+    """The f64 emissivity amplify from a zero entry spectrum: ``(Iv [B, K]
+    f64, flags [B] u8)``, kernel B4 for CUDA tensors, the plain twin for CPU
+    tensors (the f32 spectrum is not B4's: it runs the twin).
+
+    ``ivl`` [B, nseg, nsub] i32, ``gvl`` and ``evl`` [B, nseg, nsub] f32
+    from the trace; ``gv`` [nseg, cells, K] f32 lineshape tables of
+    segments 1..N-1 in the cell layout ``ivl`` indexes (every id must lie
+    in [0, cells), as the trace writes them). With no segments ``Iv`` is
+    0. Any K.
+    """
+    B, K = _check_emis(ivl, gvl, evl, gv)
+    if ivl.device.type == "cpu":
+        return amplify_emis_plain(ivl, gvl, evl, gv)
+    if ivl.device.type != "cuda":
+        raise ValueError(f"amplify_emis: unsupported device {ivl.device}")
+    if B == 0:
+        return (torch.empty((0, K), dtype=torch.float64, device=ivl.device),
+                torch.empty(0, dtype=torch.uint8, device=ivl.device))
+    stream = torch.cuda.current_stream(ivl.device).cuda_stream
+    out = _launch_emis(cuda_lib.load_library(), ivl, gvl, evl, gv, stream)
+    EMIS.count(ivl.device)
+    return out
+
+
+def _launch_emis(lib, ivl, gvl, evl, gv, stream):
+    """Launch ``rt_amplify_emis`` of ``lib`` on ``stream``; inputs already
+    checked. Returns ``(Iv, flags)``."""
+    B, nseg, nsub = ivl.shape
+    K = gv.shape[2]
+    dev = ivl.device
+    Iv = torch.empty((B, K), dtype=torch.float64, device=dev)
+    # whole 32-bit words: the kernel sets a ray's byte with a word atomicOr
+    flags = torch.empty(-(-max(B, 1) // 4) * 4, dtype=torch.uint8,
+                        device=dev)
+    pairs = K % 2 == 0 and gv.data_ptr() % 8 == 0
+    with cuda_lib.device_guard(dev):
+        rc = lib.rt_amplify_emis(
+            ivl.data_ptr(), gvl.data_ptr(), evl.data_ptr(), gv.data_ptr(), B,
+            nseg, nsub, gv.shape[1], K, int(pairs), Iv.data_ptr(),
+            flags.data_ptr(), stream)
+    cuda_lib.check(rc, "rt_amplify_emis")
+    return Iv, flags[:B]

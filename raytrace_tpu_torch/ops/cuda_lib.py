@@ -39,8 +39,8 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch"
 
 #: -fmad=false: every product and sum rounds on its own, as in the plain
-#: PyTorch twins (see csrc/trace.cu, csrc/amplify.cu). -Xptxas -v records
-#: registers and spills per kernel in the build log.
+#: PyTorch twins (see csrc/trace.cu, csrc/amplify.cu, csrc/emissivity.cu).
+#: -Xptxas -v records registers and spills per kernel in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -60,6 +60,7 @@ _SIGNATURES = {
                           + [_P, _D, _I, _I] + [_P] * 3 + [_P],
     "rt_amplify_seeded": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
     "rt_amplify_seeded_f32": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
+    "rt_amplify_emis": [_P] * 4 + [_I64] + [_I] * 5 + [_P] * 3,
     "rt_gather_probe": [_P] * 3 + [_I64] + [_I] * 2 + [_P],
 }
 
@@ -95,7 +96,9 @@ def load_library() -> ctypes.CDLL:
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     so = out_dir / "libraytrace_tpu_torch.so"
     if so.exists():
-        _info.update(built=False, seconds=0.0, path=str(so))
+        log = out_dir / "build.log"
+        _info.update(built=False, seconds=0.0, path=str(so),
+                     log=log.read_text() if log.exists() else "")
     else:
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -150,7 +153,8 @@ def _build(out_dir: Path, so: Path) -> str:
 
 def build_info() -> dict:
     """What :func:`load_library` did: ``built`` (compiled in this process),
-    ``seconds`` (nvcc wall time), ``path`` and the compiler ``log``."""
+    ``seconds`` (nvcc wall time), ``path`` and the compiler ``log`` (of the
+    build that made the library, where it was built before)."""
     return dict(_info)
 
 

@@ -21,8 +21,11 @@ default spectrum (``spectrum_dtype=jnp.float32``), which the TPU needs
 because it emulates f64: the log-gain of each (segment, sub-length) is an
 error-free two-float product (``ops/twofloat.py``) and ``exp`` and
 ``expm1`` take the pair, all in f32, line for line with
-``raytrace_tpu/ops/spectrum.py:160-176``. The emissivity path stays plain
-PyTorch in both dtypes, as it is plain XLA in ``raytrace_tpu``.
+``raytrace_tpu/ops/spectrum.py:160-176``. The emissivity path is plain
+PyTorch here in both dtypes, as it is plain XLA in ``raytrace_tpu``. In
+f64, from a zero entry spectrum, the main path runs it on a card as kernel
+B4 (``ops/amplify_kernel.amplify_emis``), whose plain twin is this code;
+the f32 spectrum runs this code everywhere.
 """
 
 from __future__ import annotations

@@ -25,7 +25,8 @@ from raytrace_tpu_torch.structures import (
 
 __all__ = ["synthetic_problem", "fresh_problem", "ray_count",
            "perturbed_problems", "time_stream_rounds",
-           "time_stream_detailed", "amplify_inputs", "source_rays",
+           "time_stream_detailed", "amplify_inputs", "emis_inputs",
+           "source_rays",
            "seed_factors", "deposit_inputs", "physical_gain", "oracle_images",
            "ASE_SHAPE", "SEED_SHAPE"]
 
@@ -103,6 +104,38 @@ def amplify_inputs(B=1024, nseg=2, nsub=3, cells=2756, K=82, seed=0,
     gvl = (rng.standard_normal((B, nseg, nsub)) * 0.1).astype(np.float32)
     gv = (rng.standard_normal((nseg, cells, K)) * 0.5).astype(np.float32)
     return ivl, gvl, gv
+
+
+def emis_inputs(B=1024, nseg=2, nsub=3, cells=2756, K=52, seed=0):
+    """Trace-shaped inputs of the emissivity amplify (kernel B4) as numpy
+    arrays ``(ivl [B, nseg, nsub] i32, gvl f32, evl f32, gv [nseg, cells,
+    K] f32)``, at the ASE widths by default: random cell ids, path gains of
+    either sign with magnitudes from 1e-6 to 3 (so that both the Taylor
+    branch and the closed form run), positive emissivities and lineshapes.
+    About one step in eight lies within an f32 ulp of the Taylor branch's
+    bound on either side: cells 0 and 1 of each table hold 1 and 2 at every
+    frequency, and such a step's path gain is +-1e-3 or +-5e-4 in f32, or
+    a neighbour of it, so that ``|gvl gv|`` (exact in f64) straddles 1e-3."""
+    rng = np.random.default_rng(seed)
+    shape = (B, nseg, nsub)
+    ivl = rng.integers(2, cells, size=shape).astype(np.int32)
+    sign = rng.choice(np.array([-1.0, 1.0]), size=shape)
+    gvl = (sign * 10.0 ** rng.uniform(-6.0, 0.5, shape)).astype(np.float32)
+    evl = rng.uniform(0.0, 2.0, shape).astype(np.float32)
+    gv = np.abs(rng.standard_normal((nseg, cells, K)) * 0.5).astype(
+        np.float32)
+    gv[:, 0, :] = 1.0
+    gv[:, 1, :] = 2.0
+    edge = rng.random(shape) < 0.125
+    cell = rng.integers(0, 2, size=shape)
+    near = np.where(cell == 0, np.float32(1e-3), np.float32(5e-4))
+    nudge = rng.integers(-1, 2, size=shape)
+    near = np.where(nudge > 0, np.nextafter(near, np.float32(1.0)),
+                    np.where(nudge < 0, np.nextafter(near, np.float32(0.0)),
+                             near))
+    ivl[edge] = cell[edge]
+    gvl[edge] = (sign * near).astype(np.float32)[edge]
+    return ivl, gvl, evl, gv
 
 
 def deposit_inputs(beam, B, seed=0, nan_share=0.01):

@@ -14,6 +14,9 @@ JAX package.
   they moved into B3.
 * The wrapper takes the twin on CPU tensors and launches nothing; with no
   segments it returns the masked entry seed.
+* The emissivity amplify's twin (of CUDA kernel B4) is ``spectrum.amplify``
+  on a zero entry spectrum and ``iv_flags``, bitwise; its wrapper takes it
+  on CPU tensors, launches nothing, and refuses what B4 does not take.
 """
 
 import numpy as np
@@ -32,8 +35,11 @@ from raytrace_tpu.testing import synthetic_problem as jax_synthetic
 from raytrace_tpu_torch.convert import problem_from_jax
 from raytrace_tpu_torch.models.problem import (seed_arrays, seed_from_tensors,
                                                seed_scalars)
-from raytrace_tpu_torch.ops import amplify_kernel, seed as seed_ops
-from raytrace_tpu_torch.testing import amplify_inputs
+from raytrace_tpu_torch.models.problem import prepare_gain
+from raytrace_tpu_torch.ops import amplify_kernel, seed as seed_ops, spectrum
+from raytrace_tpu_torch.ops.stepper import TraceResult, trace_batch_plain
+from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
+                                        source_rays, synthetic_problem)
 
 torch.set_num_threads(2)
 
@@ -155,3 +161,74 @@ def test_wrapper_checks_its_inputs():
         amplify_kernel.amplify_gain(f, fv[:40], esc, ivl, gvl, gv)
     with pytest.raises(ValueError):
         amplify_kernel.amplify_gain(f, fv, esc.to(torch.uint8), ivl, gvl, gv)
+
+
+def _traced_emis(n=1500):
+    """The twin trace's result on the first ``n`` rays of an ASE-widths
+    synthetic, and the lineshape tables of segments 1..N-1."""
+    p = synthetic_problem(nx=60, ny=25, na=19, nb=14, nv=52, gain_nx=106,
+                          gain_ny=26)
+    gain = prepare_gain(p.gain)
+    res = trace_batch_plain(source_rays(p, n), p.N, p.euv_beam.dz, gain, 1)
+    return p, res, gain.gv[1:]
+
+
+@pytest.mark.parametrize("inputs", ["traced", "emis_inputs", "no-segments"])
+def test_emis_twin_is_spectrum_amplify_and_flags(inputs):
+    """``amplify_emis_plain`` equals the emissivity branch the call ran
+    before B4 (``spectrum.amplify`` of a zero [B, K] entry spectrum, then
+    ``iv_flags``) bitwise, spectrum and flags, and the wrapper on CPU
+    tensors equals the twin without counting a launch."""
+    if inputs == "traced":
+        p, res, gv = _traced_emis()
+        N = p.N
+    else:
+        ivl, gvl, evl, gv = (torch.from_numpy(a) for a in emis_inputs(
+            B=700, nseg=0 if inputs == "no-segments" else 2, cells=300))
+        if inputs == "emis_inputs":
+            evl[4, 0, 0] = float("nan")
+        res = TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=None,
+                          exit_y=None, exit_a=None, exit_b=None,
+                          escaped=None, perp=None)
+        N = ivl.shape[1] + 1
+    B, K = res.ivl.shape[0], gv.shape[2]
+    want = spectrum.amplify(res, torch.zeros((B, K), dtype=torch.float64),
+                            gv, N)
+    want_flags = amplify_kernel.iv_flags(want)
+    got, flags = amplify_kernel.amplify_emis_plain(res.ivl, res.gvl, res.evl,
+                                                   gv)
+    assert got.dtype == torch.float64 and got.shape == (B, K)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert torch.equal(flags, want_flags)
+    before = (amplify_kernel.EMIS.launch_count, amplify_kernel.launch_count)
+    wrapped = amplify_kernel.amplify_emis(res.ivl, res.gvl, res.evl, gv)
+    assert (amplify_kernel.EMIS.launch_count,
+            amplify_kernel.launch_count) == before
+    assert torch.equal(wrapped[0].view(torch.int64), got.view(torch.int64))
+    assert torch.equal(wrapped[1], flags)
+    if inputs == "emis_inputs":
+        assert flags[4] == amplify_kernel.FLAG_NAN and flags.sum() == 2
+    elif inputs == "traced":
+        assert not flags.any() and got.abs().max() > 0
+
+
+def test_emis_wrapper_refusals():
+    """B4's wrapper refuses a wrong dtype, shape, layout or device of any
+    input before it runs anything."""
+    ivl, gvl, evl, gv = (torch.from_numpy(a)
+                         for a in emis_inputs(B=64, cells=20, K=10))
+    good = dict(ivl=ivl, gvl=gvl, evl=evl, gv=gv)
+    bad = [dict(ivl=ivl.long()), dict(gvl=gvl.double()),
+           dict(evl=evl.double()), dict(gv=gv.double()),
+           dict(ivl=ivl[:, :, :2].contiguous()), dict(evl=evl[:32]),
+           dict(gvl=gvl[:, :1].contiguous()), dict(gv=gv[:1].contiguous()),
+           dict(gv=gv[0]), dict(ivl=ivl[:, 0]),
+           dict(evl=evl.transpose(1, 2).contiguous().transpose(1, 2)),
+           dict(gv=gv.transpose(1, 2)), dict(gv=gv.to("meta")),
+           dict(ivl=ivl.to("meta"), gvl=gvl.to("meta"), evl=evl.to("meta"),
+                gv=gv.to("meta"))]
+    for change in bad:
+        with pytest.raises(ValueError, match="amplify_emis"):
+            amplify_kernel.amplify_emis(**{**good, **change})
+    Iv, flags = amplify_kernel.amplify_emis(**good)
+    assert Iv.shape == (64, 10) and flags.shape == (64,)

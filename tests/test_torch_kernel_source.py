@@ -17,6 +17,7 @@ tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
 import ctypes
+import math
 import re
 import shutil
 import subprocess
@@ -27,9 +28,10 @@ import torch
 
 from raytrace_tpu_torch.models.problem import prepare_gain
 from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, deposit_kernel,
-                                    trace_kernel)
+                                    spectrum, trace_kernel)
 from raytrace_tpu_torch.ops.stepper import trace_batch_plain
-from raytrace_tpu_torch.testing import amplify_inputs, synthetic_problem
+from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
+                                        synthetic_problem)
 
 torch.set_num_threads(2)
 
@@ -427,6 +429,89 @@ def test_amplify_f32_source_flags(host_lib):
     assert torch.equal(got.isnan(), want.isnan())
     ok = ~want.isnan()
     assert torch.equal(got[ok], want[ok])
+
+
+#: the host's libm exp, elementwise: what the host-compiled kernels call
+_LIBM_EXP = np.frompyfunc(math.exp, 1, 1)
+
+
+def _libm_exp(t):
+    return torch.from_numpy(_LIBM_EXP(t.numpy()).astype(np.float64))
+
+
+def _emis_case(case):
+    """B4's inputs on CPU tensors for one named case (``emis_inputs`` at
+    the ASE widths unless the case says otherwise)."""
+    kw = dict(B=1024, nseg=2, nsub=3, cells=400, K=52)
+    kw.update({"ragged-B": dict(B=1027), "odd-K": dict(K=7),
+               "wide-K": dict(K=600, B=61), "wide-odd-K": dict(K=301, B=37),
+               "generic": dict(nseg=3, nsub=2), "generic-pairs-one-sub":
+               dict(nseg=1, nsub=1), "no-segments": dict(nseg=0)}
+              .get(case, {}))
+    ivl, gvl, evl, gv = (torch.from_numpy(a) for a in emis_inputs(**kw))
+    if case == "negative-gain":
+        gvl = -(gvl.abs() * 20.0)
+    elif case == "planted":
+        evl[3] = -evl[3]            # a negative spectrum
+        evl[5, 0, 1] = float("nan")  # NaN at every frequency
+        gv[0, 7, 4] = float("nan")   # NaN at one frequency of one ray
+        ivl[9, 0, 0] = 7
+        evl[11, 1, 2] = -30.0       # negative at some frequencies
+    return ivl, gvl, evl, gv
+
+
+@pytest.mark.parametrize("case", [
+    "shipped", "negative-gain", "planted", "ragged-B", "odd-K", "wide-K",
+    "wide-odd-K", "generic", "generic-pairs-one-sub", "no-segments"])
+def test_amplify_emis_source_equals_twin(host_lib, monkeypatch, case):
+    """B4 (the shipped 2 x 3 instantiation and the generic ones, pairs and
+    single frequencies, K wider than a block): the spectrum and the flags
+    bitwise equal to the twin's with the twin's exp the host's libm exp,
+    which the host-compiled kernel calls in place of CUDA's; ``|gvl gv|``
+    straddles the Taylor branch's bound 1e-3 on both sides in every case.
+    (PyTorch's CPU exp is an ulp off libm's for about one argument in
+    twenty, and an ulp of ``e^gl`` is a relative 2.2e-16 / |gl| of
+    ``e^gl - 1``: 2.2e-13 next to the bound.)"""
+    args = _emis_case(case)
+    amplify_kernel._check_emis(*args)
+    got, flags = amplify_kernel._launch_emis(host_lib, *args, None)
+    monkeypatch.setattr(torch, "exp", _libm_exp)
+    want, want_flags = amplify_kernel.amplify_emis_plain(*args)
+    assert flags.shape == want_flags.shape == (args[0].shape[0],)
+    assert torch.equal(flags, want_flags)
+    ok = ~want.isnan()
+    assert torch.equal(got.isnan(), ~ok) and torch.equal(got[ok], want[ok])
+    g = args[3][torch.arange(args[0].shape[1])[None, :, None], args[0].long()]
+    gl = (args[1].double()[..., None] * g.double()).abs()
+    if case == "planted":
+        assert (flags & amplify_kernel.FLAG_NEG)[[3, 11]].all()
+        assert (flags & amplify_kernel.FLAG_NAN)[[5, 9]].all()
+        assert got[9].isnan().sum() == 1 and got[5].isnan().all()
+    else:
+        assert not flags.any()
+    if case == "no-segments":
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        assert (gl[..., 0] < 1e-3).any() and (gl[..., 0] > 1e-3).any()
+
+
+def test_amplify_emis_source_on_traced_rays(host_lib, monkeypatch):
+    """B4 on the twin trace's path of ASE-shaped rays (the cell layout,
+    the gains and emissivities the trace writes): the spectrum bitwise
+    equal to the twin's with the host's libm exp in both, the flags
+    identical, no flag set."""
+    p = synthetic_problem(nx=60, ny=25, na=19, nb=14, nv=52, gain_nx=106,
+                          gain_ny=26)
+    gain = prepare_gain(p.gain)
+    res = trace_batch_plain(_rays(p, 2000, 7), p.N, p.euv_beam.dz, gain, 1)
+    args = (res.ivl, res.gvl, res.evl, gain.gv[1:])
+    amplify_kernel._check_emis(*args)
+    got, flags = amplify_kernel._launch_emis(host_lib, *args, None)
+    monkeypatch.setattr(torch, "exp", _libm_exp)
+    want, want_flags = amplify_kernel.amplify_emis_plain(*args)
+    assert torch.equal(got, want)
+    assert torch.equal(flags, want_flags) and not flags.any()
+    assert got.abs().max() > 0
 
 
 @pytest.mark.parametrize("method", [1, 2])

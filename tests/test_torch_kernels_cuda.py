@@ -14,7 +14,8 @@ import torch
 from raytrace_tpu_torch.models.problem import prepare_gain
 from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, deposit_kernel,
                                     trace_kernel)
-from raytrace_tpu_torch.testing import amplify_inputs, synthetic_problem
+from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
+                                        synthetic_problem)
 
 pytestmark = pytest.mark.gpu
 
@@ -83,6 +84,7 @@ def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
         raise AssertionError("a plain twin ran on CUDA tensors")
 
     for mod, name in ((amplify_kernel, "amplify_gain_plain"),
+                      (amplify_kernel, "amplify_emis_plain"),
                       (amplify_kernel, "log_gain_plain"),
                       (amplify_kernel, "iv_flags"),
                       (trace_kernel, "trace_batch_plain"),
@@ -92,12 +94,15 @@ def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
         monkeypatch.setattr(mod, name, refuse)
     f, fv, esc, ivl, gvl, gv = _seeded_inputs(8, None, cuda)
     before = (amplify_kernel.launch_count, trace_kernel.launch_count,
-              deposit_kernel.launch_count)
+              deposit_kernel.launch_count, amplify_kernel.EMIS.launch_count)
     Iv, flags = amplify_kernel.amplify_gain(f[:0], fv, esc[:0], ivl[:0],
                                             gvl[:0], gv)
     assert Iv.shape == (0, 82) and Iv.dtype == torch.float64
     assert flags.shape == (0,) and flags.dtype == torch.uint8
     assert Iv.device.type == flags.device.type == "cuda"
+    Iv, flags = amplify_kernel.amplify_emis(ivl[:0], gvl[:0], gvl[:0], gv)
+    assert Iv.shape == (0, 82) and Iv.dtype == torch.float64
+    assert flags.shape == (0,) and Iv.device.type == "cuda"
     p = synthetic_problem()
     rays = {k: v[:0] for k, v in _rays(p, 1, 0, cuda).items()}
     res, steps = trace_kernel.trace_batch(
@@ -110,7 +115,8 @@ def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
     deposit_kernel.bin_deposit(Iv, coords, ok, beam, 1, 1.0, image, i_ang)
     assert torch.equal(image, torch.ones_like(image))
     assert (amplify_kernel.launch_count, trace_kernel.launch_count,
-            deposit_kernel.launch_count) == before
+            deposit_kernel.launch_count,
+            amplify_kernel.EMIS.launch_count) == before
 
 
 def _deposit_args(shape, method, B, device, seed=1):
@@ -236,6 +242,103 @@ def test_amplify_kernel_flags(cuda):
     assert torch.equal(flags, want_flags)
     assert torch.equal((flags & amplify_kernel.FLAG_NAN) != 0, ~esc)
     assert torch.equal(got.isnan(), want.isnan())
+
+
+def _emis_rel(got, want):
+    """The largest relative difference of two spectra where the twin's is
+    not zero (the zeros must match)."""
+    nz = want != 0
+    assert torch.equal(got == 0, ~nz)
+    return ((got - want)[nz].abs() / want[nz].abs()).max().item()
+
+
+@pytest.mark.parametrize("shape", ["ase-call", "chunk"])
+def test_amplify_emis_kernel_vs_twin(cuda, shape):
+    """B4 against its twin on the card at the ASE call's shape (the 399,000
+    rays of the ASE-widths synthetic traced by B1, K 52, 2 x 3 steps) and at
+    a 2^20-ray chunk of ``emis_inputs`` (|gvl gv| straddling the Taylor
+    branch's bound, odd K too): the spectrum within 1e-15 relative (CUDA's
+    exp in both), the flags identical; one launch counted."""
+    from raytrace_tpu_torch.testing import ASE_SHAPE, source_rays
+
+    if shape == "ase-call":
+        p = synthetic_problem(**ASE_SHAPE)
+        gain = prepare_gain(p.gain, cuda)
+        res = trace_kernel.trace_batch(source_rays(p, None, cuda), p.N,
+                                       p.euv_beam.dz, gain, 1)
+        cases = [(res.ivl, res.gvl, res.evl, gain.gv[1:])]
+    else:
+        cases = [tuple(torch.as_tensor(a, device=cuda) for a in emis_inputs(
+            B=1 << 20, K=K, seed=K)) for K in (52, 7)]
+    for args in cases:
+        before = amplify_kernel.EMIS.launch_count
+        got, flags = amplify_kernel.amplify_emis(*args)
+        torch.cuda.synchronize()
+        assert amplify_kernel.EMIS.launch_count == before + 1
+        want, want_flags = amplify_kernel.amplify_emis_plain(*args)
+        assert _emis_rel(got, want) <= 1e-15
+        assert torch.equal(flags, want_flags) and not flags.any()
+
+
+def test_amplify_emis_kernel_flags(cuda):
+    """Both flag bits on the card: a negative emissivity and a NaN one."""
+    ivl, gvl, evl, gv = (torch.as_tensor(a, device=cuda)
+                         for a in emis_inputs(B=65537, seed=3))
+    evl[7] = -evl[7]
+    evl[65536, 1, 2] = float("nan")
+    got, flags = amplify_kernel.amplify_emis(ivl, gvl, evl, gv)
+    want, want_flags = amplify_kernel.amplify_emis_plain(ivl, gvl, evl, gv)
+    assert torch.equal(flags, want_flags)
+    assert flags[7] == amplify_kernel.FLAG_NEG
+    assert flags[65536] == amplify_kernel.FLAG_NAN
+    assert int((flags != 0).sum()) == 2
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+def test_create_image_ase_fixture_goes_through_b4(cuda):
+    """The ASE fixture through its call's CUDA graph: ``check_ans``
+    against the golden at 5e-6, B4 booked once a chunk in the config (the
+    capture raises unless the call launched exactly that), and each replay
+    adds those launches to B4's count, none to B3's."""
+    import os
+
+    from raytrace_tpu_torch import check_ans, create_image, load_input
+    from raytrace_tpu_torch.models import ray_tracer
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "golden_ase.dat")
+    p, image0, i_ang0 = load_input(path)
+    prep = ray_tracer.prepare_pipeline(p, "cuda", device=cuda)
+    n = prep.cfg["n_chunks"]
+    assert prep.cfg["launches"]["amplify_emis"] == n > 0
+    assert prep.cfg["launches"]["amplify"] == 0
+    for _ in range(2):
+        before = (amplify_kernel.EMIS.launch_count,
+                  amplify_kernel.launch_count)
+        image, i_ang = create_image(p, "cuda", device=cuda)
+        assert check_ans(image0, i_ang0, image, i_ang)
+        assert (amplify_kernel.EMIS.launch_count - before[0],
+                amplify_kernel.launch_count - before[1]) == (n, 0)
+    assert len(prep.pipeline.graphs) == 1
+
+
+def test_sharded_ase_on_the_cards_matches_single(cuda):
+    """The ASE shape on a mesh of every visible card (one entry a card):
+    within 1e-12 of the single-card call, B4 launched on every card."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    from raytrace_tpu_torch.parallel.sharding import create_image_sharded
+    from raytrace_tpu_torch.testing import ASE_SHAPE
+
+    mesh = make_mesh()
+    want = create_image(synthetic_problem(**ASE_SHAPE), "cuda", device=cuda)
+    before = dict(amplify_kernel.EMIS.device_launches)
+    got = create_image_sharded(synthetic_problem(**ASE_SHAPE), mesh, "cuda")
+    for dev in mesh:
+        dev = torch.device(dev)
+        assert (amplify_kernel.EMIS.device_launches.get(dev, 0)
+                > before.get(dev, 0))
+    _close(got, want)
 
 
 @pytest.mark.parametrize("spread,K", [(None, 82), (40, 82), (None, 7)])
@@ -404,13 +507,14 @@ def test_sharded_on_card_matches_single(cuda, seeded):
     want = create_image(synthetic_problem(seeded=seeded), "cuda",
                         device=cuda)
     before = (trace_kernel.launch_count, deposit_kernel.launch_count,
-              amplify_kernel.launch_count)
+              amplify_kernel.launch_count, amplify_kernel.EMIS.launch_count)
     got = create_image_sharded(synthetic_problem(seeded=seeded),
                                ("cuda:0", "cuda:0"), "cuda")
     after = (trace_kernel.launch_count, deposit_kernel.launch_count,
-             amplify_kernel.launch_count)
+             amplify_kernel.launch_count, amplify_kernel.EMIS.launch_count)
     assert after[0] >= before[0] + 2 and after[1] >= before[1] + 2
     assert (after[2] > before[2]) == seeded
+    assert (after[3] >= before[3] + 2) == (not seeded)
     for g, w in zip(got, want):
         assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
 

@@ -205,8 +205,32 @@ def test_launches_follow_the_config():
     unless the emissivity amplify runs; none for the plain twins."""
     prep = prepare_pipeline(synthetic_problem(**SMALL), "cpu", chunk_size=9)
     assert prep.cfg["launches"] == dict(trace=0, bin_deposit=0, amplify=0,
-                                        bin_deposit_f32=0, amplify_f32=0)
+                                        bin_deposit_f32=0, amplify_f32=0,
+                                        amplify_emis=0)
     assert not prep.cfg["graph"]
+
+
+@pytest.mark.parametrize("seeded,dtype,want", [
+    (False, torch.float64, dict(amplify=0, amplify_f32=0, amplify_emis=1)),
+    (True, torch.float64, dict(amplify=1, amplify_f32=0, amplify_emis=0)),
+    (False, torch.float32, dict(amplify=0, amplify_f32=0, amplify_emis=0)),
+    (True, torch.float32, dict(amplify=1, amplify_f32=1, amplify_emis=0)),
+], ids=["ase-f64", "seeded-f64", "ase-f32", "seeded-f32"])
+def test_kernel_launches_per_chunk(seeded, dtype, want):
+    """A ``cuda`` configuration (resolved here for the CPU; the graph's
+    capture holds the card's launches to it) books B1 and B2 once a chunk,
+    and once a chunk B4 on an f64 ASE call, B3 on a seeded one (its f32
+    instantiation too in f32); the f32 ASE call's amplify is plain."""
+    p = synthetic_problem(seeded=seeded, **SMALL)
+    prep = ray_tracer._prepare(p, "cuda", "cpu", chunk_size=50, eager=True,
+                               spectrum_dtype=dtype)
+    n = prep.cfg["n_chunks"]
+    assert n > 2
+    f32 = n if dtype == torch.float32 else 0
+    assert prep.cfg["launches"] == dict(
+        trace=n, bin_deposit=n, bin_deposit_f32=f32,
+        **{k: v * n for k, v in want.items()})
+    assert set(prep.cfg["launches"]) == set(ray_tracer._WRAPPERS)
 
 
 @pytest.mark.parametrize("reorder", [False, True])
@@ -294,3 +318,22 @@ def test_prepared_sharded_call():
     assert prep.cfg["method"] == 2 and prep.cfg["reorder"]
     assert prep.cfg["dims"] == entries[0]["dims"]
     assert sum(e["B_total"] for e in entries) == int(np.prod(prep.cfg["dims"]))
+
+
+@pytest.mark.parametrize("source", ["ase", "seeded", "random-2MiB"])
+def test_stage_copies_the_packed_buffer(source):
+    """A graph's staging copy (``ray_tracer._stage``, one memcpy on the
+    calling thread) leaves a byte-for-byte copy of the call's packed
+    buffer, at the shipped units' sizes and at one above PyTorch's
+    threshold for splitting a copy across its threads."""
+    if source == "random-2MiB":
+        buf = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 256, 2 << 20, dtype=np.uint8))
+    else:
+        prep = prepare_pipeline(synthetic_problem(seeded=source == "seeded"),
+                                "cpu")
+        buf, = prep.operands
+    staging = torch.empty_like(buf)
+    ray_tracer._stage(staging, buf)
+    assert staging.data_ptr() != buf.data_ptr()
+    assert staging.dtype == buf.dtype and torch.equal(staging, buf)
