@@ -35,8 +35,11 @@ fails (non-zero exit, no result line) if any phase fails:
    identical, both flag bits from a negative and a NaN emissivity), each
    beside its twin, the benchmark's byte bound and its f64-issue estimate
    from the f64 instructions of its SASS (``cuobjdump``), with nvcc's
-   registers and spills of every instantiation (none may spill); the
-   binning deposit B2 on random
+   registers and spills of every instantiation (none may spill); B4-f32,
+   its f32 form, on the same two inputs and at K 600 (spectrum and flags
+   bitwise equal to the twin's, both flag bits), each beside its twin and
+   the benchmark's bound, with its registers and spills (none may spill);
+   the binning deposit B2 on random
    coordinates at both image shapes and at the real inputs of both shapes
    (bins bitwise equal to get_index's, image and I_ang within 1e-12
    relative of the twin), timed in turns with ``index_add_`` of the image
@@ -191,8 +194,8 @@ fails (non-zero exit, no result line) if any phase fails:
    two pools) at most max(256 MiB, 0.10 x the row's peak); an f32 stream
    at depth 2, an f32 mesh stream and f32 sharded calls on two entries of
    the card over 4 units with tables all different of each shipped shape,
-   each within 1e-12 of the synchronous f32 call. B1, B2-f32 and B3-f32
-   (the f32 instantiations' own counts) must have launched;
+   each within 1e-12 of the synchronous f32 call. B1, B2-f32, B3-f32 and
+   B4-f32 (the f32 kernels' own counts) must have launched;
 15. with the counts at 0 again (run before phase 11), ``raytrace_tpu``'s
    own backend names on the card: ``create_image`` with ``lax`` and
    ``lax-exact`` and no device on both fixtures (``check_ans`` against
@@ -414,6 +417,7 @@ def phase_kernels(results):
     results["trace"]["max_abs_err"] = worst
     phase_amplify(results, shapes["seed_chunk"])
     phase_emis(results, shapes["ase_call"])
+    phase_emis_f32(results, shapes["ase_call"])
     phase_deposit(results, shapes)
     phase_f32_kernels(results, shapes)
     phase_probe_kernel(results)
@@ -747,6 +751,116 @@ def phase_emis(results, ase):
                                    bound_ms=a["bound_ms"],
                                    bound_by=a["bound_by"], library_ms=None,
                                    max_rel_err=a["max_rel"])
+
+
+#: the f32 emissivity amplify's f32 operations, as the benchmark's
+#: ``amplify_f32_roofline`` counts them from the stated arithmetic: per
+#: ray, frequency and step, and per ray and step
+EMIS_F32_OPS = dict(element=62, ray_step=1)
+
+
+def phase_emis_f32(results, ase):
+    """B4-f32, the f32 spectrum's emissivity amplify with the flags fused
+    in, against its twin (``amplify_emis_plain`` in f32) on the card at the
+    whole ASE call (B1's path of its 399,000 rays, K 52, 2 x 3 steps), at a
+    2^20-ray chunk of the ASE shape at ``-scale=64`` and at K 600 (wider
+    than a block): spectrum and flags bitwise, and both flag bits from a
+    negative and a NaN emissivity; each timed with CUDA events beside the
+    twin, with the benchmark's bound (``amplify_f32_roofline``'s count: 12
+    bytes a ray and step, the tables, the f32 spectrum; 62 f32 operations
+    an element-step); nvcc's registers and spills of every
+    instantiation."""
+    from raytrace_tpu_torch.io.loader import scale_problem
+    from raytrace_tpu_torch.models.problem import prepare_gain
+    from raytrace_tpu_torch.ops import amplify_kernel, cuda_lib, trace_kernel
+    from raytrace_tpu_torch.ops import twofloat as tf
+    from raytrace_tpu_torch.testing import (ASE_SHAPE, emis_inputs,
+                                            same_bits, source_rays,
+                                            synthetic_problem)
+
+    f32 = torch.float32
+    info = cuda_lib.build_info()
+    regs = ptxas_entries(info.get("log", ""), "amplify_emis_f32_kernel")
+    print(f"B4-f32 registers and spills (entry, registers, spill stores, "
+          f"spill loads): {regs}", flush=True)
+    if not regs or any(r[2] or r[3] for r in regs):
+        fail(f"B4-f32: registers and spills {regs}")
+
+    p64 = synthetic_problem(**ASE_SHAPE)
+    scale_problem(p64, 64)
+    g64 = prepare_gain(p64.gain, DEV)
+    res64 = trace_kernel.trace_batch(source_rays(p64, 1 << 20, DEV), p64.N,
+                                     p64.euv_beam.dz, g64, 1)
+    wide = tuple(torch.as_tensor(a, device=DEV) for a in emis_inputs(
+        B=65536, K=600, cells=400, seed=600))
+    cells = {"ase_call": (ase["p"], (ase["res"].ivl, ase["res"].gvl,
+                                     ase["res"].evl, ase["gain"].gv[1:])),
+             "scale64_chunk": (p64, (res64.ivl, res64.gvl, res64.evl,
+                                     g64.gv[1:])),
+             "wide_K600": (None, wide)}
+    out = {}
+    for name, (p, args) in cells.items():
+        got, flags = amplify_kernel.amplify_emis(*args, dtype=f32)
+        want, want_flags = amplify_kernel.amplify_emis_plain(*args,
+                                                             dtype=f32)
+        torch.cuda.synchronize()
+        same = same_bits(got, want)
+        if not same or not torch.equal(flags, want_flags) or flags.any():
+            ulps = (got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs().max().item()
+            fail(f"B4-f32 {name}: bitwise {same} (max {ulps} ulp), flags "
+                 f"equal {torch.equal(flags, want_flags)}, flagged "
+                 f"{int((flags != 0).sum())}")
+        ivl, gvl, evl, gv = args
+        B, K = got.shape
+        nseg, nsub = ivl.shape[1], ivl.shape[2]
+        T = nseg * nsub
+        if name == "ase_call":
+            evl_bad = evl.clone()
+            evl_bad[3] = -evl_bad[3]
+            evl_bad[5, 0, 1] = float("nan")
+            bad = (ivl, gvl, evl_bad, gv)
+            got_b, fb = amplify_kernel.amplify_emis(*bad, dtype=f32)
+            want_b, wb = amplify_kernel.amplify_emis_plain(*bad, dtype=f32)
+            if (not torch.equal(fb, wb) or not same_bits(got_b, want_b)
+                    or fb[3] != amplify_kernel.FLAG_NEG
+                    or fb[5] != amplify_kernel.FLAG_NAN):
+                fail(f"B4-f32 flags with a negative and a NaN emissivity: "
+                     f"equal {torch.equal(fb, wb)}, rays 3 and 5 "
+                     f"{fb[3].item()} {fb[5].item()}")
+        gl = (gvl[..., None] * gv[torch.arange(nseg, device=DEV)[
+            None, :, None], ivl.long()]).abs()
+        taylor = (gl < 1e-3).double().mean().item()
+        poly = ((gl >= 1e-3) & (gl <= tf.HALF_LN2)).double() \
+            .mean().item()
+        ms = cuda_ms(lambda: amplify_kernel.amplify_emis(*args, dtype=f32),
+                     20)
+        plain_ms = cuda_ms(lambda: amplify_kernel.amplify_emis_plain(
+            *args, dtype=f32), 3)
+        table = gv.shape[0] * gv.shape[1] * K * 4
+        if p is not None:
+            nx = max(len(g.x) for g in p.gain)
+            ny = max(len(g.y) for g in p.gain)
+            table = 4 * nseg * nx * ny * K
+        nbytes = B * T * 12 + table + B * K * 4
+        b_ms, b_by = bound(nbytes, f32_ops=B * T * (
+            K * EMIS_F32_OPS["element"] + EMIS_F32_OPS["ray_step"]))
+        print(f"B4-f32 {name} B={B} K={K} T={T}: spectrum and flags "
+              f"bitwise equal to the twin's; |gl| < 1e-3 in {taylor:.4f} "
+              f"and on expm1's polynomial in {poly:.4f} of the "
+              f"element-steps; kernel {ms:.4f} ms, plain twin "
+              f"{plain_ms:.4f} ms; {nbytes} bytes: bound {b_ms:.4f} ms by "
+              f"{b_by}, {b_ms / ms:.4f} of it reached", flush=True)
+        out[name] = dict(B=B, K=K, T=T, bitwise=same, ms=ms,
+                         plain_ms=plain_ms, bytes=nbytes, bound_ms=b_ms,
+                         bound_by=b_by, taylor_share=taylor,
+                         poly_share=poly)
+    record["amplify_emis_f32"] = dict(out, registers=regs)
+    a = out["ase_call"]
+    results["amplify_emis_f32"] = dict(ms=a["ms"], plain_ms=a["plain_ms"],
+                                       bound_ms=a["bound_ms"],
+                                       bound_by=a["bound_by"],
+                                       library_ms=None, bitwise=a["bitwise"])
 
 
 def run_stats(bins, K, tile=32):
@@ -1333,6 +1447,7 @@ PROFILE_TAGS = (("trace", "trace_kernel"),
                 ("bin_deposit", "bin_deposit_kernel"),
                 ("amplify", "amplify_seeded_kernel"),
                 ("amplify_emis", "amplify_emis_kernel"),
+                ("amplify_emis_f32", "amplify_emis_f32_kernel"),
                 ("bin_deposit_f32", "bin_deposit_f32_kernel"),
                 ("amplify_f32", "amplify_seeded_f32_kernel"))
 
@@ -2117,17 +2232,20 @@ def phase_host():
 
 #: phase 14's rows: the bench's source, ``-scale=`` and timed calls
 F32_ROWS = {"ase_small": 3, "seed_small": 3, "seed_scale4": 3, "scale16": 2}
-#: the f32 path's kernels: B1 and the f32 instantiations of B2 and B3
-F32_KERNELS = ("trace", "bin_deposit_f32", "amplify_f32")
+#: the f32 path's kernels: B1, the f32 instantiations of B2 and B3, and
+#: B4-f32
+F32_KERNELS = ("trace", "bin_deposit_f32", "amplify_f32", "amplify_emis_f32")
 #: an f32 call against its f64 call (tests/test_golden.py's bound)
 F32_REL = 1e-5
 
 
 def f32_kernels_of(p):
     """The kernels an f32 call of ``p`` must launch: B1 and B2-f32, and
-    B3-f32 unless the emissivity amplify (ASE) takes its place."""
-    return tuple(n for n in F32_KERNELS
-                 if n != "amplify_f32" or "amplify" in path_kernels_of(p))
+    B3-f32, or B4-f32 where the emissivity amplify (ASE) takes its
+    place."""
+    emis = "amplify_emis" in path_kernels_of(p)
+    skip = "amplify_f32" if emis else "amplify_emis_f32"
+    return tuple(n for n in F32_KERNELS if n != skip)
 
 
 def timed_split(p, **kw):
@@ -2159,7 +2277,8 @@ def phase_f32():
     ``graph_memory_check``: the f32 and f64 graphs of a row are two
     pools); an f32 stream at depth 2 and f32 sharded calls and a mesh
     stream on two entries of the card, each within 1e-12 of the
-    synchronous f32 call. B1, B2-f32 and B3-f32 must have launched."""
+    synchronous f32 call. B1, B2-f32, B3-f32 and B4-f32 must have
+    launched."""
     from raytrace_tpu_torch import (check_ans, create_image,
                                     create_image_stream, load_input)
     from raytrace_tpu_torch.models import ray_tracer
@@ -2286,7 +2405,7 @@ MULTI_REL = 1e-12
 
 #: the kernels a call of phase 15's names must not launch
 ROUTED_KERNELS = ("trace", "bin_deposit", "amplify", "bin_deposit_f32",
-                  "amplify_f32", "amplify_emis")
+                  "amplify_f32", "amplify_emis", "amplify_emis_f32")
 #: the reference's CPU-class names: they run on the CPU on a card host too
 CPU_CLASS = ("cpu", "threads", "openmp", "kokkos-serial", "kokkos-openmp",
              "kokkos-thread")
@@ -2926,6 +3045,7 @@ def main(argv) -> int:
                      "bin_deposit_f32": deposit_kernel.F32,
                      "amplify_f32": amplify_kernel.F32,
                      "amplify_emis": amplify_kernel.EMIS,
+                     "amplify_emis_f32": amplify_kernel.EMIS_F32,
                      "gather_probe": gather_probe})
     path_kernels = ("trace", "bin_deposit", "amplify")
 
@@ -2984,6 +3104,8 @@ def main(argv) -> int:
              "raytrace_tpu/ops/deposit_kernel.py:76"),
             ("amplify_f32", "amplify.cu",
              "raytrace_tpu/ops/pallas_amplify.py:123"),
+            ("amplify_emis_f32", "emissivity.cu",
+             "none: XLA, raytrace_tpu/ops/spectrum.py:160-179"),
             ("gather_probe", "gather_probe.cu", "tools/vpu_probe.py:112")):
         # the f32 instantiations' launches on the f32 path's calls
         calls = ("seed_small_f32", "ase_small_f32") if "f32" in name \

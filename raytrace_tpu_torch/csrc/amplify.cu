@@ -98,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "twofloat.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -172,48 +174,10 @@ amplify_seeded_kernel(const double* __restrict__ f,
   }
 }
 
-// ---- the f32 instantiation: two-float arithmetic -------------------------
+// ---- the f32 instantiation: two-float arithmetic (csrc/twofloat.cuh) -----
 
-constexpr float kLog2e = 0x1.715476p+0f;   // f32(log2 e)
-constexpr float kLn2Hi = 0x1.62e4p-1f;     // ln2's high part, 12 zero bits
-constexpr float kLn2Lo = 0x1.7f7d1cp-20f;  // ln2 - kLn2Hi in f32
-// |n| past this scales to 0 or inf, as the true result does
-constexpr float kNMax = 252.0f;
 // units of V frequencies a thread of the f32 kernel takes
 constexpr int kUnitsF32 = 3;
-
-// Knuth's two-sum: a + b = s + err exactly
-__device__ __forceinline__ void two_sum(float a, float b, float& s,
-                                        float& err) {
-  s = a + b;
-  const float bb = s - a;
-  err = (a - (s - bb)) + (b - bb);
-}
-
-// 2^n for n in [-126, 127]
-__device__ __forceinline__ float pow2(int n) {
-  return __int_as_float((n + 127) << 23);
-}
-
-// exp(hi + lo): n = round(hi log2e) (half to even), f = ((hi - n ln2_hi)
-// + lo) - n ln2_lo, e^f by a degree-7 Horner polynomial with the f32
-// reciprocals 1/k, scaled by 2^n as two exact powers of two (one rounding,
-// overflow to inf and gradual underflow as ldexp)
-__device__ __forceinline__ float exp_fast2(float hi, float lo) {
-  const float n = rintf(hi * kLog2e);
-  const float f = ((hi - n * kLn2Hi) + lo) - n * kLn2Lo;
-  float e = 1.0f + f * 0x1.24924ap-3f;             // 1/7
-  e = 1.0f + (f * 0x1.555556p-3f) * e;             // 1/6
-  e = 1.0f + (f * 0x1.99999ap-3f) * e;             // 1/5
-  e = 1.0f + (f * 0x1p-2f) * e;                    // 1/4
-  e = 1.0f + (f * 0x1.555556p-2f) * e;             // 1/3
-  e = 1.0f + (f * 0x1p-1f) * e;                    // 1/2
-  e = 1.0f + f * e;
-  // a NaN n comes only with a NaN f: the result is NaN whatever the scale
-  const int ni = (int)fminf(fmaxf(n, -kNMax), kNMax);
-  const int n1 = ni >> 1;  // floor(ni / 2)
-  return (e * pow2(n1)) * pow2(ni - n1);
-}
 
 // U units of V consecutive frequencies a thread (threadIdx.x), one ray a
 // thread row (threadIdx.y); NSEG, NSUB as in amplify_seeded_kernel

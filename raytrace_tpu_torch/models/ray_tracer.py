@@ -9,13 +9,14 @@ PyTorch, following ``raytrace_tpu.models.ray_tracer``:
 * the N_start/N_parallel stride contract (RayTraceImage.cpp:300-328);
 * per chunk: entry rays -> trace -> amplify (seeded: the per-ray seed
   factor into kernel B3, which forms the entry spectrum and flags bad
-  spectra; ASE in f64: kernel B4, from a zero entry spectrum, which flags
-  bad spectra too) -> binning deposit (kernel B2: bins, scale and the I_ang sum in
-  one pass) into the call's f64 image and I_ang accumulators;
+  spectra; ASE: kernel B4, or B4-f32 in f32, from a zero entry spectrum,
+  which flags bad spectra too) -> binning deposit (kernel B2: bins, scale
+  and the I_ang sum in one pass) into the call's f64 image and I_ang
+  accumulators;
 * the spectrum in f64 (the port's default, the reference's arithmetic) or,
   with ``spectrum_dtype`` float32, in ``raytrace_tpu``'s default f32
-  two-float form (the f32 instantiations of B3 and B2, the f32 emissivity
-  amplify in plain PyTorch); the image and I_ang accumulate in f64 either way;
+  two-float form (the f32 kernels B3-f32, B4-f32 and B2-f32); the image and
+  I_ang accumulate in f64 either way;
 * per-ray failure codes -1/-2/-3 -> bitmask on the device -> (only when a
   bit is set) the codes, failed-ray dump and abort (RayTraceImage.cpp:
   427-430).
@@ -70,7 +71,6 @@ change every iteration (Readme.txt:43).
 
 from __future__ import annotations
 
-import functools
 import time
 from collections import OrderedDict, deque
 from typing import NamedTuple
@@ -383,8 +383,9 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
     buf, layout = packed or _pack(problem, src, dev)
     kernels = n_chunks if name == "cuda" else 0
     f32 = kernels if sdtype == torch.float32 else 0
-    # B4, the emissivity amplify, takes the f64 spectrum alone
-    emis = kernels if use_emis and sdtype == torch.float64 else 0
+    # the emissivity amplify: B4 on the f64 spectrum, B4-f32 on the f32
+    emis = kernels if use_emis else 0
+    emis64, emis32 = (0, emis) if sdtype == torch.float32 else (emis, 0)
     n_image = beam.nx * beam.ny * beam.nv
     cfg = dict(
         name=name, device=dev, N=problem.N, dz=float(beam.dz), K=beam.nv,
@@ -402,7 +403,7 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
                       amplify=0 if use_emis else kernels,
                       bin_deposit_f32=f32,
                       amplify_f32=0 if use_emis else f32,
-                      amplify_emis=emis))
+                      amplify_emis=emis64, amplify_emis_f32=emis32))
     return PreparedCall(pipeline=_pipeline(cfg), operands=(buf,), cfg=cfg,
                         timer_name=timer_name + "-" + name)
 
@@ -776,11 +777,6 @@ def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
                                            amplify_kernel.amplify_gain_plain,
                                            amplify_kernel.amplify_emis_plain,
                                            deposit_kernel.bin_deposit_plain)
-    if sdtype != torch.float64:
-        # B4 is the f64 spectrum's: the f32 emissivity amplify is plain
-        emis = functools.partial(amplify_kernel.amplify_emis_plain,
-                                 dtype=sdtype)
-
     # one upload of the problem tables per call
     tables = _tables(cfg, buf)
     gain, dbeam, grids = tables.gain, tables.beam, tables.grids
@@ -819,7 +815,7 @@ def _dispatch_steps(cfg: dict, buf: torch.Tensor, prev=None):
             counts.narrow(0, start, n).index_copy_(0, perm, cnt)
         if use_emis:
             # from a zero entry spectrum, flagging the bad spectra
-            Iv, flags = emis(res.ivl, res.gvl, res.evl, gv)
+            Iv, flags = emis(res.ivl, res.gvl, res.evl, gv, dtype=sdtype)
         else:
             # the entry seed in factor form; B3 forms f * fv, masks the
             # escaped rays and flags the bad spectra
@@ -897,7 +893,8 @@ class _EagerPipeline:
 _WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
              "amplify": amplify_kernel, "bin_deposit_f32": deposit_kernel.F32,
              "amplify_f32": amplify_kernel.F32,
-             "amplify_emis": amplify_kernel.EMIS}
+             "amplify_emis": amplify_kernel.EMIS,
+             "amplify_emis_f32": amplify_kernel.EMIS_F32}
 
 
 def _launch_counts() -> dict:

@@ -39,14 +39,18 @@ raise) on their own card. ``launch_count`` counts kernel launches of both
 instantiations, ``device_launches`` them per device, and :data:`F32` the
 f32 instantiation's alone.
 
-The ASE path's f64 amplification with gain and emissivity from a zero entry
-spectrum is kernel B4 (``csrc/emissivity.cu``), with its failure flags fused
-in as B3's: :func:`amplify_emis` dispatches as :func:`amplify_gain` does,
-to the plain twin :func:`amplify_emis_plain` (``ops/spectrum.amplify`` on a
-zero entry spectrum, then :func:`iv_flags`) for CPU tensors. It replaces no
-Pallas kernel: ``raytrace_tpu`` computes the step in XLA
-(``raytrace_tpu/ops/spectrum.py:156-183``). Its launches are counted apart,
-in :data:`EMIS`.
+The ASE path's amplification with gain and emissivity from a zero entry
+spectrum is kernel B4 (``csrc/emissivity.cu``) in f64 and kernel B4-f32
+(the same file, ``rt_amplify_emis_f32``) in f32, each with its failure
+flags fused in as B3's: :func:`amplify_emis` dispatches as
+:func:`amplify_gain` does, to the plain twin :func:`amplify_emis_plain`
+(``ops/spectrum.amplify`` on a zero entry spectrum, then :func:`iv_flags`)
+for CPU tensors. B4-f32 computes the twin's f32 arithmetic operation by
+operation (the two-float helpers of ``csrc/twofloat.cuh``, shared with
+B3-f32), so it is bitwise equal to it. Neither replaces a Pallas kernel:
+``raytrace_tpu`` computes the step in XLA
+(``raytrace_tpu/ops/spectrum.py:156-183``). Their launches are counted
+apart, in :data:`EMIS` and :data:`EMIS_F32`.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from raytrace_tpu_torch.ops import twofloat as tf
 __all__ = ["amplify_gain", "amplify_gain_plain", "log_gain_plain",
            "log_gain2_plain", "iv_flags", "FLAG_NEG", "FLAG_NAN",
            "launch_count", "device_launches", "F32", "amplify_emis",
-           "amplify_emis_plain", "EMIS"]
+           "amplify_emis_plain", "EMIS", "EMIS_F32"]
 
 #: flag bits per ray: some Iv < 0 (failure code -2), some Iv NaN (code -3)
 FLAG_NEG, FLAG_NAN = 1, 2
@@ -77,6 +81,8 @@ device_launches: dict = {}
 F32 = cuda_lib.Launches()
 #: the launches of kernel B4, the emissivity amplify (not counted above)
 EMIS = cuda_lib.Launches()
+#: the launches of kernel B4-f32, its f32 form (counted apart from B4's)
+EMIS_F32 = cuda_lib.Launches()
 
 _DTYPES = (torch.float64, torch.float32)
 
@@ -242,10 +248,10 @@ def _launch(lib, f, fv, escaped, ivl, gvl, gv, stream, log_gain=False,
 def amplify_emis_plain(ivl: torch.Tensor, gvl: torch.Tensor,
                        evl: torch.Tensor, gv: torch.Tensor,
                        dtype: torch.dtype = torch.float64):
-    """Plain twin of kernel B4: ``(Iv, flags)`` with ``Iv`` the emissivity
-    amplify (``spectrum.amplify``) of a zero entry spectrum along the path
-    ``ivl``, ``gvl``, ``evl`` through the tables ``gv``, and ``flags =
-    iv_flags(Iv)``."""
+    """Plain twin of kernel B4 (of B4-f32 for ``dtype`` f32): ``(Iv,
+    flags)`` with ``Iv`` the emissivity amplify (``spectrum.amplify``) of a
+    zero entry spectrum along the path ``ivl``, ``gvl``, ``evl`` through
+    the tables ``gv``, and ``flags = iv_flags(Iv)``."""
     B, nseg = ivl.shape[0], ivl.shape[1]
     path = SimpleNamespace(ivl=ivl, gvl=gvl, evl=evl)
     Iv0 = torch.zeros((B, gv.shape[2]), dtype=dtype, device=ivl.device)
@@ -253,7 +259,10 @@ def amplify_emis_plain(ivl: torch.Tensor, gvl: torch.Tensor,
     return Iv, iv_flags(Iv)
 
 
-def _check_emis(ivl, gvl, evl, gv):
+def _check_emis(ivl, gvl, evl, gv, out_dtype=torch.float64):
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"amplify_emis: the spectrum is float64 or "
+                         f"float32, got {out_dtype}")
     if ivl.dim() != 3:
         raise ValueError("amplify_emis: ivl must be [B, nseg, nsub]")
     B, nseg, nsub = ivl.shape
@@ -274,10 +283,11 @@ def _check_emis(ivl, gvl, evl, gv):
 
 
 def amplify_emis(ivl: torch.Tensor, gvl: torch.Tensor, evl: torch.Tensor,
-                 gv: torch.Tensor):
-    """The f64 emissivity amplify from a zero entry spectrum: ``(Iv [B, K]
-    f64, flags [B] u8)``, kernel B4 for CUDA tensors, the plain twin for CPU
-    tensors (the f32 spectrum is not B4's: it runs the twin).
+                 gv: torch.Tensor, dtype: torch.dtype = torch.float64):
+    """The emissivity amplify from a zero entry spectrum: ``(Iv [B, K] of
+    dtype, flags [B] u8)``, kernel B4 (``dtype`` f64, the default) or
+    B4-f32 (``dtype`` f32) for CUDA tensors, the plain twin for CPU
+    tensors.
 
     ``ivl`` [B, nseg, nsub] i32, ``gvl`` and ``evl`` [B, nseg, nsub] f32
     from the trace; ``gv`` [nseg, cells, K] f32 lineshape tables of
@@ -285,35 +295,39 @@ def amplify_emis(ivl: torch.Tensor, gvl: torch.Tensor, evl: torch.Tensor,
     in [0, cells), as the trace writes them). With no segments ``Iv`` is
     0. Any K.
     """
-    B, K = _check_emis(ivl, gvl, evl, gv)
+    B, K = _check_emis(ivl, gvl, evl, gv, dtype)
     if ivl.device.type == "cpu":
-        return amplify_emis_plain(ivl, gvl, evl, gv)
+        return amplify_emis_plain(ivl, gvl, evl, gv, dtype)
     if ivl.device.type != "cuda":
         raise ValueError(f"amplify_emis: unsupported device {ivl.device}")
     if B == 0:
-        return (torch.empty((0, K), dtype=torch.float64, device=ivl.device),
+        return (torch.empty((0, K), dtype=dtype, device=ivl.device),
                 torch.empty(0, dtype=torch.uint8, device=ivl.device))
     stream = torch.cuda.current_stream(ivl.device).cuda_stream
-    out = _launch_emis(cuda_lib.load_library(), ivl, gvl, evl, gv, stream)
-    EMIS.count(ivl.device)
+    out = _launch_emis(cuda_lib.load_library(), ivl, gvl, evl, gv, stream,
+                       dtype)
+    (EMIS_F32 if dtype == torch.float32 else EMIS).count(ivl.device)
     return out
 
 
-def _launch_emis(lib, ivl, gvl, evl, gv, stream):
-    """Launch ``rt_amplify_emis`` of ``lib`` on ``stream``; inputs already
-    checked. Returns ``(Iv, flags)``."""
+def _launch_emis(lib, ivl, gvl, evl, gv, stream, dtype=torch.float64):
+    """Launch ``rt_amplify_emis`` (``rt_amplify_emis_f32`` for ``dtype``
+    f32) of ``lib`` on ``stream``; inputs already checked. Returns ``(Iv,
+    flags)``."""
     B, nseg, nsub = ivl.shape
     K = gv.shape[2]
     dev = ivl.device
-    Iv = torch.empty((B, K), dtype=torch.float64, device=dev)
+    Iv = torch.empty((B, K), dtype=dtype, device=dev)
     # whole 32-bit words: the kernel sets a ray's byte with a word atomicOr
     flags = torch.empty(-(-max(B, 1) // 4) * 4, dtype=torch.uint8,
                         device=dev)
     pairs = K % 2 == 0 and gv.data_ptr() % 8 == 0
+    name = ("rt_amplify_emis_f32" if dtype == torch.float32
+            else "rt_amplify_emis")
     with cuda_lib.device_guard(dev):
-        rc = lib.rt_amplify_emis(
+        rc = getattr(lib, name)(
             ivl.data_ptr(), gvl.data_ptr(), evl.data_ptr(), gv.data_ptr(), B,
             nseg, nsub, gv.shape[1], K, int(pairs), Iv.data_ptr(),
             flags.data_ptr(), stream)
-    cuda_lib.check(rc, "rt_amplify_emis")
+    cuda_lib.check(rc, name)
     return Iv, flags[:B]

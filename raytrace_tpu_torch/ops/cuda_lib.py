@@ -61,6 +61,7 @@ _SIGNATURES = {
     "rt_amplify_seeded": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
     "rt_amplify_seeded_f32": [_P] * 6 + [_I64] + [_I] * 5 + [_P] * 4,
     "rt_amplify_emis": [_P] * 4 + [_I64] + [_I] * 5 + [_P] * 3,
+    "rt_amplify_emis_f32": [_P] * 4 + [_I64] + [_I] * 5 + [_P] * 3,
     "rt_gather_probe": [_P] * 3 + [_I64] + [_I] * 2 + [_P],
 }
 

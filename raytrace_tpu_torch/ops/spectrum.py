@@ -22,10 +22,11 @@ because it emulates f64: the log-gain of each (segment, sub-length) is an
 error-free two-float product (``ops/twofloat.py``) and ``exp`` and
 ``expm1`` take the pair, all in f32, line for line with
 ``raytrace_tpu/ops/spectrum.py:160-176``. The emissivity path is plain
-PyTorch here in both dtypes, as it is plain XLA in ``raytrace_tpu``. In
-f64, from a zero entry spectrum, the main path runs it on a card as kernel
-B4 (``ops/amplify_kernel.amplify_emis``), whose plain twin is this code;
-the f32 spectrum runs this code everywhere.
+PyTorch here in both dtypes, as it is plain XLA in ``raytrace_tpu``. From a
+zero entry spectrum the main path runs it on a card as kernel B4 in f64
+and kernel B4-f32 in f32 (``ops/amplify_kernel.amplify_emis``), whose
+plain twin is this code; the CPU and the twins' methods (``lax``,
+``lax-exact``) run this code.
 """
 
 from __future__ import annotations

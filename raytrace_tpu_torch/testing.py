@@ -28,7 +28,7 @@ __all__ = ["synthetic_problem", "fresh_problem", "ray_count",
            "time_stream_detailed", "amplify_inputs", "emis_inputs",
            "source_rays",
            "seed_factors", "deposit_inputs", "physical_gain", "oracle_images",
-           "ASE_SHAPE", "SEED_SHAPE"]
+           "same_bits", "ASE_SHAPE", "SEED_SHAPE"]
 
 #: ``synthetic_problem`` arguments of the two shipped shapes: the widths of
 #: ``ASE_small.dat`` (399,000 rays, nv 52, method 1) and of
@@ -136,6 +136,20 @@ def emis_inputs(B=1024, nseg=2, nsub=3, cells=2756, K=52, seed=0):
     ivl[edge] = cell[edge]
     gvl[edge] = (sign * near).astype(np.float32)[edge]
     return ivl, gvl, evl, gv
+
+
+def same_bits(got, want) -> bool:
+    """Two f32 or f64 tensors bitwise equal: the same dtype and shape, NaN
+    at the same places and every other element the same bits (so -0 and +0
+    differ; a NaN's payload is not compared)."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    nan = want.isnan()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.isnan(), nan)
+            and torch.equal(got[~nan].view(ints[want.dtype]),
+                            want[~nan].view(ints[want.dtype])))
 
 
 def deposit_inputs(beam, B, seed=0, nan_share=0.01):

@@ -58,7 +58,8 @@ import torch
 
 from raytrace_tpu_torch.ops import cuda_lib
 
-__all__ = ["VARIANTS", "variant_source", "bin_stats", "main"]
+__all__ = ["VARIANTS", "kernel_source", "variant_source", "bin_stats",
+           "main"]
 
 ROOT = Path(__file__).resolve().parents[2]
 BUILD = ROOT / "build" / "f32_ab"
@@ -68,9 +69,9 @@ DEFAULT_OUT = ROOT / "chiprun_out" / "f32_ab.json"
 REL = 1e-12
 
 _B3_MAGIC_INT = (
-    "  const int ni = (int)fminf(fmaxf(n, -kNMax), kNMax);",
-    "  const int ni = __float_as_int(fminf(fmaxf(n, -kNMax), kNMax)"
-    " + 0x1.8p23f) - 0x4B400000;")
+    "  const int ni = n == n ? (int)fminf(fmaxf(n, -kNMax), kNMax) : 0;",
+    "  const int ni = n == n ? __float_as_int(fminf(fmaxf(n, -kNMax), kNMax)"
+    " + 0x1.8p23f) - 0x4B400000 : 0;")
 _B3_RINT = ("  const float n = rintf(hi * kLog2e);",
             """  const float x = hi * kLog2e;
   const float n = fabsf(x) < 0x1p22f ? (x + 0x1.8p23f) - 0x1.8p23f
@@ -157,6 +158,20 @@ def _prefix(kernel, name):
     return "ab_" + re.sub(r"\W", "_", f"{kernel}_{name}")
 
 
+#: a source's include of a header beside it in ``csrc/``
+_LOCAL_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"$', re.M)
+
+
+def kernel_source(root: Path, kernel: str) -> str:
+    """The text of ``<root>/raytrace_tpu_torch/csrc/<kernel>.cu`` with each
+    header of that directory it includes inlined (the two-float helpers of
+    ``twofloat.cuh``, which the variants edit too), so that a variant
+    builds in a directory of its own."""
+    csrc = root / "raytrace_tpu_torch" / "csrc"
+    return _LOCAL_INCLUDE.sub(lambda m: (csrc / m.group(1)).read_text(),
+                              (csrc / f"{kernel}.cu").read_text())
+
+
 def variant_source(text: str, kernel: str, name: str, edits) -> str:
     """``text`` (a kernel source) with ``edits`` applied, every one of
     which must occur, and each C entry ``rt_*`` renamed with the variant's
@@ -174,9 +189,8 @@ def _build(parent: Path):
     texts = {}
     for name, kernel, tree, edits in VARIANTS:
         root = parent if tree == "parent" else ROOT
-        src = root / "raytrace_tpu_torch" / "csrc" / f"{kernel}.cu"
-        texts[(kernel, name)] = variant_source(src.read_text(), kernel, name,
-                                               edits)
+        texts[(kernel, name)] = variant_source(kernel_source(root, kernel),
+                                               kernel, name, edits)
     h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
     for k in sorted(texts):
         h.update(texts[k].encode())

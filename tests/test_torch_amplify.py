@@ -16,7 +16,10 @@ JAX package.
   segments it returns the masked entry seed.
 * The emissivity amplify's twin (of CUDA kernel B4) is ``spectrum.amplify``
   on a zero entry spectrum and ``iv_flags``, bitwise; its wrapper takes it
-  on CPU tensors, launches nothing, and refuses what B4 does not take.
+  on CPU tensors, launches nothing, and refuses what B4 does not take, in
+  f64 and in f32 (B4-f32). A ``cuda`` call sends its emissivity amplify
+  through the wrapper in the call's spectrum dtype; ``cpu``, ``lax`` and
+  ``lax-exact`` run the twin.
 """
 
 import numpy as np
@@ -212,9 +215,10 @@ def test_emis_twin_is_spectrum_amplify_and_flags(inputs):
         assert not flags.any() and got.abs().max() > 0
 
 
-def test_emis_wrapper_refusals():
-    """B4's wrapper refuses a wrong dtype, shape, layout or device of any
-    input before it runs anything."""
+def _emis_refusals():
+    """Good inputs of the emissivity amplify's wrapper, and changes to them
+    that it must refuse: a wrong dtype, shape, layout or device of any
+    input."""
     ivl, gvl, evl, gv = (torch.from_numpy(a)
                          for a in emis_inputs(B=64, cells=20, K=10))
     good = dict(ivl=ivl, gvl=gvl, evl=evl, gv=gv)
@@ -227,8 +231,70 @@ def test_emis_wrapper_refusals():
            dict(gv=gv.transpose(1, 2)), dict(gv=gv.to("meta")),
            dict(ivl=ivl.to("meta"), gvl=gvl.to("meta"), evl=evl.to("meta"),
                 gv=gv.to("meta"))]
+    return good, bad
+
+
+def test_emis_wrapper_refusals():
+    """B4's wrapper refuses a wrong dtype, shape, layout or device of any
+    input before it runs anything."""
+    good, bad = _emis_refusals()
     for change in bad:
         with pytest.raises(ValueError, match="amplify_emis"):
             amplify_kernel.amplify_emis(**{**good, **change})
     Iv, flags = amplify_kernel.amplify_emis(**good)
     assert Iv.shape == (64, 10) and flags.shape == (64,)
+
+
+def test_emis_f32_wrapper_refusals():
+    """B4-f32's wrapper refuses what B4's does, before it runs anything,
+    and any spectrum dtype but float64 and float32."""
+    good, bad = _emis_refusals()
+    for change in bad:
+        with pytest.raises(ValueError, match="amplify_emis"):
+            amplify_kernel.amplify_emis(**{**good, **change},
+                                        dtype=torch.float32)
+    for dtype in (torch.float16, torch.bfloat16, torch.int32):
+        with pytest.raises(ValueError, match="amplify_emis"):
+            amplify_kernel.amplify_emis(**good, dtype=dtype)
+    Iv, flags = amplify_kernel.amplify_emis(**good, dtype=torch.float32)
+    assert Iv.shape == (64, 10) and Iv.dtype == torch.float32
+    assert flags.shape == (64,)
+
+
+@pytest.mark.parametrize("method", ["cuda", "cpu", "lax", "lax-exact"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_emis_dispatch_follows_method_and_dtype(monkeypatch, method, dtype):
+    """The ASE call's emissivity amplify: a ``cuda`` configuration (its
+    tensors on the CPU here, so the wrapper takes the twin) calls
+    ``amplify_emis`` once a chunk in the call's spectrum dtype, which picks
+    B4 or B4-f32 on a card; ``cpu``, ``lax`` and ``lax-exact`` call the
+    twin itself, in that dtype, and never the wrapper."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import synthetic_problem
+
+    seen = {"amplify_emis": [], "amplify_emis_plain": []}
+    for name in seen:
+        real = getattr(amplify_kernel, name)
+
+        def spy(*args, _name=name, _real=real, **kw):
+            seen[_name].append(kw.get("dtype", args[4] if len(args) > 4
+                                      else torch.float64))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(amplify_kernel, name, spy)
+    p = synthetic_problem(nx=6, ny=4, na=4, nb=3, nv=5)
+    if method == "cuda":
+        prep = ray_tracer._prepare(p, "cuda", "cpu", chunk_size=50,
+                                   eager=True, spectrum_dtype=dtype)
+        n = prep.cfg["n_chunks"]
+        prep.pipeline(*prep.operands)
+        assert n > 2 and seen["amplify_emis"] == [dtype] * n
+        assert seen["amplify_emis_plain"] == [dtype] * n
+    else:
+        assert ray_tracer.resolve_method(p, method) == "cpu"
+        create_image(p, method, chunk_size=50, spectrum_dtype=dtype)
+        n = -(-(6 * 4 * 4 * 3) // 50)
+        assert seen["amplify_emis"] == []
+        assert seen["amplify_emis_plain"] == [dtype] * n

@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 
 def _source(kernel):
-    return (cuda_lib.CSRC_DIR / f"{kernel}.cu").read_text()
+    return f32_ab.kernel_source(f32_ab.ROOT, kernel)
 
 
 @pytest.mark.parametrize("variant", f32_ab.VARIANTS,

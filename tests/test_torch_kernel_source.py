@@ -31,7 +31,7 @@ from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, deposit_kernel,
                                     spectrum, trace_kernel)
 from raytrace_tpu_torch.ops.stepper import trace_batch_plain
 from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
-                                        synthetic_problem)
+                                        same_bits, synthetic_problem)
 
 torch.set_num_threads(2)
 
@@ -147,7 +147,8 @@ def _host_build(d, sources, defines=()):
     so = d / "libhost_kernels.so"
     r = subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off",
                         "-fno-fast-math", "-shared", "-fPIC", "-I", str(d),
-                        *defines, "-o", str(so), *srcs], capture_output=True,
+                        "-I", str(cuda_lib.CSRC_DIR), *defines, "-o",
+                        str(so), *srcs], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
@@ -512,6 +513,169 @@ def test_amplify_emis_source_on_traced_rays(host_lib, monkeypatch):
     assert torch.equal(got, want)
     assert torch.equal(flags, want_flags) and not flags.any()
     assert got.abs().max() > 0
+
+
+def _emis_f32(lib, args):
+    """B4-f32 through ``lib`` and its twin: ``(got, flags, want,
+    want_flags)``."""
+    f32 = torch.float32
+    amplify_kernel._check_emis(*args, f32)
+    got, flags = amplify_kernel._launch_emis(lib, *args, None, f32)
+    want, want_flags = amplify_kernel.amplify_emis_plain(*args, dtype=f32)
+    return got, flags, want, want_flags
+
+
+@pytest.mark.parametrize("case", [
+    "shipped", "negative-gain", "planted", "ragged-B", "odd-K", "wide-K",
+    "wide-odd-K", "generic", "generic-pairs-one-sub", "no-segments"])
+def test_amplify_emis_f32_source_equals_twin(host_lib, case):
+    """B4-f32 (the shipped 2 x 3 instantiation and the generic ones, pairs
+    and single frequencies, K wider than a block) on B4's cases: the f32
+    spectrum and the flags bitwise equal to the twin's
+    (``amplify_emis_plain`` in f32), with no libm stand-in: every step is
+    a deterministic f32 operation. ``|gvl gv|`` straddles the Taylor
+    branch's bound in every case with segments."""
+    args = _emis_case(case)
+    got, flags, want, want_flags = _emis_f32(host_lib, args)
+    assert flags.shape == want_flags.shape == (args[0].shape[0],)
+    assert torch.equal(flags, want_flags)
+    assert same_bits(got, want)
+    g = args[3][torch.arange(args[0].shape[1])[None, :, None], args[0].long()]
+    gl = (args[1][..., None] * g).abs()
+    if case == "planted":
+        assert (flags & amplify_kernel.FLAG_NEG)[[3, 11]].all()
+        assert (flags & amplify_kernel.FLAG_NAN)[[5, 9]].all()
+        assert got[9].isnan().sum() == 1 and got[5].isnan().all()
+    else:
+        assert not flags.any()
+    if case == "no-segments":
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        small = gl < spectrum._SMALL_F32
+        assert small.any() and (~small).any()
+
+
+def test_amplify_emis_f32_source_on_traced_rays(host_lib):
+    """B4-f32 on the twin trace's path of ASE-shaped rays: the f32
+    spectrum and the flags bitwise the twin's, no flag set."""
+    p = synthetic_problem(nx=60, ny=25, na=19, nb=14, nv=52, gain_nx=106,
+                          gain_ny=26)
+    gain = prepare_gain(p.gain)
+    res = trace_batch_plain(_rays(p, 2000, 7), p.N, p.euv_beam.dz, gain, 1)
+    got, flags, want, want_flags = _emis_f32(
+        host_lib, (res.ivl, res.gvl, res.evl, gain.gv[1:]))
+    assert same_bits(got, want)
+    assert torch.equal(flags, want_flags) and not flags.any()
+    assert got.abs().max() > 0
+
+
+def _neighbours(x, n=3):
+    """The f32 value ``x`` and its ``n`` nearest f32 neighbours on each
+    side, both signs."""
+    x = np.float32(x)
+    out = [x]
+    lo = hi = x
+    for _ in range(n):
+        lo = np.nextafter(lo, np.float32(0.0))
+        hi = np.nextafter(hi, np.float32(np.inf))
+        out += [lo, hi]
+    out = np.array(out, dtype=np.float32)
+    return np.concatenate([out, -out])
+
+
+def test_amplify_emis_f32_source_branch_bounds(host_lib):
+    """Log-gains on both sides of both branch bounds, to the ulp: ``|gl|``
+    at and around the Taylor branch's f32(1e-3), and ``|hi|`` at and around
+    the direct polynomial's f32(ln2 / 2) in ``expm1_from_exp`` (and a few
+    far from both). Each ray repeats its path gain at every step over
+    tables of ones and twos, so ``gl`` is the path gain or twice it,
+    exactly: spectrum and flags bitwise the twin's."""
+    from raytrace_tpu_torch.ops import twofloat as tf
+
+    gains = np.concatenate([
+        _neighbours(spectrum._SMALL_F32), _neighbours(spectrum._SMALL_F32 / 2),
+        _neighbours(tf.HALF_LN2), _neighbours(tf.HALF_LN2 / 2),
+        np.array([0.0, -0.0, 1e-6, 0.05, 0.5, 1.0, 3.0, -2.5],
+                 dtype=np.float32)])
+    B, nseg, nsub, K = len(gains), 2, 3, 6
+    rng = np.random.default_rng(11)
+    ivl = torch.from_numpy(rng.integers(0, 2, (B, nseg, nsub))
+                           .astype(np.int32))
+    gvl = torch.from_numpy(np.repeat(gains, nseg * nsub)
+                           .reshape(B, nseg, nsub))
+    evl = torch.from_numpy(rng.uniform(0.1, 2.0, (B, nseg, nsub))
+                           .astype(np.float32))
+    gv = torch.ones((nseg, 2, K), dtype=torch.float32)
+    gv[:, 1] = 2.0
+    got, flags, want, want_flags = _emis_f32(host_lib, (ivl, gvl, evl, gv))
+    assert same_bits(got, want)
+    assert torch.equal(flags, want_flags)
+    gl = (gvl * torch.where(ivl == 1, 2.0, 1.0)).abs()
+    for bound in (spectrum._SMALL_F32, tf.HALF_LN2):
+        assert (gl < bound).any() and (gl == bound).any()
+        assert (gl > bound).any()
+
+
+def test_amplify_emis_f32_source_overflow(host_lib):
+    """A log-gain past f32's range: ``exp_fast2`` gives inf, the spectrum
+    NaN (``el / gl * inf + 0 * inf``: the entry 0 times inf), with the NaN
+    flag set, bitwise as the twin, on the rays whose gains were scaled up;
+    the others untouched."""
+    ivl, gvl, evl, gv = (torch.from_numpy(a) for a in emis_inputs(
+        B=257, nseg=2, nsub=3, cells=300, K=10, seed=5))
+    big = torch.zeros(257, dtype=torch.bool)
+    big[[0, 7, 100, 256]] = True
+    gvl[big] = 200.0
+    got, flags, want, want_flags = _emis_f32(host_lib, (ivl, gvl, evl, gv))
+    assert same_bits(got, want)
+    assert torch.equal(flags, want_flags)
+    assert torch.all(flags[big] & amplify_kernel.FLAG_NAN)
+    assert got[big].isnan().any(dim=1).all()
+    assert not flags[~big].any() and not got[~big].isnan().any()
+
+
+def test_amplify_emis_f32_source_in_the_call(host_lib, monkeypatch,
+                                             tmp_path):
+    """An f32 ASE call of the ``cuda`` configuration (its tensors on the
+    CPU) with B4-f32 compiled for the host in place of the wrapper: image
+    and I_ang bitwise those of the CPU call, the kernel once a chunk."""
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+
+    calls = []
+
+    def host_emis(ivl, gvl, evl, gv, dtype=torch.float64):
+        calls.append(dtype)
+        return amplify_kernel._launch_emis(host_lib, ivl, gvl, evl, gv, None,
+                                           dtype)
+
+    monkeypatch.setattr(amplify_kernel, "amplify_emis", host_emis)
+    p = synthetic_problem(nx=12, ny=6, na=5, nb=4, nv=10)
+    f32 = torch.float32
+    prep = ray_tracer._prepare(p, "cuda", "cpu", chunk_size=400, eager=True,
+                               spectrum_dtype=f32)
+    got = ray_tracer._finalize_call(p, prep, prep.pipeline(*prep.operands),
+                                    str(tmp_path / "failed.dat"))
+    want = create_image(p, "cpu", chunk_size=400, spectrum_dtype=f32)
+    assert prep.cfg["n_chunks"] > 1
+    assert calls == [f32] * prep.cfg["n_chunks"]
+    assert np.abs(want[0]).max() > 0
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_amplify_emis_f32_source_wrapper_on_cpu_is_the_twin():
+    """On CPU tensors ``amplify_emis(..., dtype=float32)`` is the twin and
+    counts no launch of either kernel."""
+    args = _emis_case("shipped")
+    before = (amplify_kernel.EMIS.launch_count,
+              amplify_kernel.EMIS_F32.launch_count)
+    got, flags = amplify_kernel.amplify_emis(*args, dtype=torch.float32)
+    want, want_flags = amplify_kernel.amplify_emis_plain(
+        *args, dtype=torch.float32)
+    assert (amplify_kernel.EMIS.launch_count,
+            amplify_kernel.EMIS_F32.launch_count) == before
+    assert same_bits(got, want) and torch.equal(flags, want_flags)
 
 
 @pytest.mark.parametrize("method", [1, 2])

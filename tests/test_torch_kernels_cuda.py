@@ -15,7 +15,7 @@ from raytrace_tpu_torch.models.problem import prepare_gain
 from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, deposit_kernel,
                                     trace_kernel)
 from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
-                                        synthetic_problem)
+                                        same_bits, synthetic_problem)
 
 pytestmark = pytest.mark.gpu
 
@@ -339,6 +339,101 @@ def test_sharded_ase_on_the_cards_matches_single(cuda):
         assert (amplify_kernel.EMIS.device_launches.get(dev, 0)
                 > before.get(dev, 0))
     _close(got, want)
+
+
+@pytest.mark.parametrize("shape", ["ase-call", "chunk", "wide-K"])
+def test_amplify_emis_f32_kernel_vs_twin(cuda, shape):
+    """B4-f32 against its twin (``amplify_emis_plain`` in f32) on the card:
+    at the ASE call's shape (399,000 rays traced by B1, K 52, 2 x 3
+    steps), at a 2^20-ray chunk of ``emis_inputs`` (even and odd K), and
+    at K wider than a block (600 and 301, the generic instantiation too):
+    spectrum and flags bitwise; one launch counted, none of B4's."""
+    from raytrace_tpu_torch.testing import ASE_SHAPE, source_rays
+
+    if shape == "ase-call":
+        p = synthetic_problem(**ASE_SHAPE)
+        gain = prepare_gain(p.gain, cuda)
+        res = trace_kernel.trace_batch(source_rays(p, None, cuda), p.N,
+                                       p.euv_beam.dz, gain, 1)
+        cases = [(res.ivl, res.gvl, res.evl, gain.gv[1:])]
+    elif shape == "chunk":
+        cases = [tuple(torch.as_tensor(a, device=cuda) for a in emis_inputs(
+            B=1 << 20, K=K, seed=K)) for K in (52, 7)]
+    else:
+        cases = [tuple(torch.as_tensor(a, device=cuda) for a in emis_inputs(
+            B=B, nseg=nseg, nsub=nsub, K=K, seed=K))
+            for B, nseg, nsub, K in ((4099, 2, 3, 600), (1031, 3, 2, 301))]
+    for args in cases:
+        before = (amplify_kernel.EMIS_F32.launch_count,
+                  amplify_kernel.EMIS.launch_count)
+        got, flags = amplify_kernel.amplify_emis(*args, dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert (amplify_kernel.EMIS_F32.launch_count,
+                amplify_kernel.EMIS.launch_count) == (before[0] + 1,
+                                                      before[1])
+        want, want_flags = amplify_kernel.amplify_emis_plain(
+            *args, dtype=torch.float32)
+        assert same_bits(got, want)
+        assert torch.equal(flags, want_flags) and not flags.any()
+
+
+def test_amplify_emis_f32_kernel_flags(cuda):
+    """Both flag bits of B4-f32 on the card: a negative emissivity, a NaN
+    one, and a log-gain past f32's range (NaN from 0 * inf); spectrum and
+    flags bitwise the twin's."""
+    ivl, gvl, evl, gv = (torch.as_tensor(a, device=cuda)
+                         for a in emis_inputs(B=65537, seed=3))
+    evl[7] = -evl[7]
+    evl[65536, 1, 2] = float("nan")
+    gvl[100] = 200.0
+    got, flags = amplify_kernel.amplify_emis(ivl, gvl, evl, gv,
+                                             dtype=torch.float32)
+    want, want_flags = amplify_kernel.amplify_emis_plain(
+        ivl, gvl, evl, gv, dtype=torch.float32)
+    assert torch.equal(flags, want_flags) and same_bits(got, want)
+    assert flags[7] == amplify_kernel.FLAG_NEG
+    assert flags[65536] == amplify_kernel.FLAG_NAN
+    assert flags[100] & amplify_kernel.FLAG_NAN
+    assert int((flags != 0).sum()) == 3
+
+
+def test_create_image_ase_f32_goes_through_b4_f32(cuda):
+    """The ASE fixture in f32 through its call's CUDA graph: ``check_ans``
+    against the golden, B4-f32 booked once a chunk in the config (the
+    capture raises unless the call launched exactly that), and each replay
+    after the first call (which warms up and captures) adds those launches
+    to B4-f32's count, none to B4's or B3's; within 1e-12 of the twins'
+    call on the card."""
+    import os
+
+    from raytrace_tpu_torch import check_ans, create_image, load_input
+    from raytrace_tpu_torch.models import ray_tracer
+
+    f32 = torch.float32
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "golden_ase.dat")
+    p, image0, i_ang0 = load_input(path)
+    prep = ray_tracer.prepare_pipeline(p, "cuda", spectrum_dtype=f32,
+                                       device=cuda)
+    n = prep.cfg["n_chunks"]
+    assert prep.cfg["launches"]["amplify_emis_f32"] == n > 0
+    assert prep.cfg["launches"]["amplify_emis"] == 0
+    assert prep.cfg["launches"]["amplify"] == 0
+    create_image(p, "cuda", spectrum_dtype=f32, device=cuda)
+    for _ in range(2):
+        before = (amplify_kernel.EMIS_F32.launch_count,
+                  amplify_kernel.EMIS.launch_count,
+                  amplify_kernel.launch_count)
+        image, i_ang = create_image(p, "cuda", spectrum_dtype=f32,
+                                    device=cuda)
+        assert check_ans(image0, i_ang0, image, i_ang)
+        assert (amplify_kernel.EMIS_F32.launch_count - before[0],
+                amplify_kernel.EMIS.launch_count - before[1],
+                amplify_kernel.launch_count - before[2]) == (n, 0, 0)
+    assert len(prep.pipeline.graphs) == 1
+    twin = create_image(p, "cpu", spectrum_dtype=f32, device=cuda)
+    for a, b in ((image, twin[0]), (i_ang, twin[1])):
+        assert np.linalg.norm(a - b) <= 1e-12 * np.linalg.norm(b)
 
 
 @pytest.mark.parametrize("spread,K", [(None, 82), (40, 82), (None, 7)])

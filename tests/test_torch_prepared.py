@@ -206,21 +206,25 @@ def test_launches_follow_the_config():
     prep = prepare_pipeline(synthetic_problem(**SMALL), "cpu", chunk_size=9)
     assert prep.cfg["launches"] == dict(trace=0, bin_deposit=0, amplify=0,
                                         bin_deposit_f32=0, amplify_f32=0,
-                                        amplify_emis=0)
+                                        amplify_emis=0, amplify_emis_f32=0)
     assert not prep.cfg["graph"]
 
 
 @pytest.mark.parametrize("seeded,dtype,want", [
-    (False, torch.float64, dict(amplify=0, amplify_f32=0, amplify_emis=1)),
-    (True, torch.float64, dict(amplify=1, amplify_f32=0, amplify_emis=0)),
-    (False, torch.float32, dict(amplify=0, amplify_f32=0, amplify_emis=0)),
-    (True, torch.float32, dict(amplify=1, amplify_f32=1, amplify_emis=0)),
+    (False, torch.float64, dict(amplify=0, amplify_f32=0, amplify_emis=1,
+                                amplify_emis_f32=0)),
+    (True, torch.float64, dict(amplify=1, amplify_f32=0, amplify_emis=0,
+                               amplify_emis_f32=0)),
+    (False, torch.float32, dict(amplify=0, amplify_f32=0, amplify_emis=0,
+                                amplify_emis_f32=1)),
+    (True, torch.float32, dict(amplify=1, amplify_f32=1, amplify_emis=0,
+                               amplify_emis_f32=0)),
 ], ids=["ase-f64", "seeded-f64", "ase-f32", "seeded-f32"])
 def test_kernel_launches_per_chunk(seeded, dtype, want):
     """A ``cuda`` configuration (resolved here for the CPU; the graph's
     capture holds the card's launches to it) books B1 and B2 once a chunk,
-    and once a chunk B4 on an f64 ASE call, B3 on a seeded one (its f32
-    instantiation too in f32); the f32 ASE call's amplify is plain."""
+    and once a chunk B4 on an f64 ASE call, B4-f32 on an f32 one, B3 on a
+    seeded one (its f32 instantiation too in f32)."""
     p = synthetic_problem(seeded=seeded, **SMALL)
     prep = ray_tracer._prepare(p, "cuda", "cpu", chunk_size=50, eager=True,
                                spectrum_dtype=dtype)
