@@ -249,9 +249,7 @@ F64_OPS_PER_S = 34e12
 B1_OPS = dict(step_f32=81, cell_f32=36, cell_f32_emis=48, cell_f64=28)
 
 record: dict = {}
-#: the kernels' wrapper modules by name (set in main) and each kernel's
-#: launches in one synchronous call of each shipped shape
-WRAPPERS: dict = {}
+#: each C entry's launches in one synchronous call of each shipped shape
 LAUNCHES_PER_CALL: dict = {}
 
 
@@ -756,7 +754,7 @@ def phase_emis(results, ase):
 #: the f32 emissivity amplify's f32 operations, as the benchmark's
 #: ``amplify_f32_roofline`` counts them from the stated arithmetic: per
 #: ray, frequency and step, and per ray and step
-EMIS_F32_OPS = dict(element=62, ray_step=1)
+B4_F32_OPS = dict(element=62, ray_step=1)
 
 
 def phase_emis_f32(results, ase):
@@ -844,7 +842,7 @@ def phase_emis_f32(results, ase):
             table = 4 * nseg * nx * ny * K
         nbytes = B * T * 12 + table + B * K * 4
         b_ms, b_by = bound(nbytes, f32_ops=B * T * (
-            K * EMIS_F32_OPS["element"] + EMIS_F32_OPS["ray_step"]))
+            K * B4_F32_OPS["element"] + B4_F32_OPS["ray_step"]))
         print(f"B4-f32 {name} B={B} K={K} T={T}: spectrum and flags "
               f"bitwise equal to the twin's; |gl| < 1e-3 in {taylor:.4f} "
               f"and on expm1's polynomial in {poly:.4f} of the "
@@ -1221,6 +1219,7 @@ def check_output(image, i_ang, p):
 def phase_main_path():
     from raytrace_tpu_torch import check_ans, create_image, load_input
     from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.ops import cuda_lib
     from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
                                             synthetic_problem)
 
@@ -1248,14 +1247,12 @@ def phase_main_path():
         times = []
         torch.cuda.reset_peak_memory_stats()
         for r in range(3):
-            before = {n: w.launch_count for n, w in WRAPPERS.items()}
+            before = cuda_lib.launches()
             t0 = time.perf_counter()
             image, i_ang = create_image(p, "cuda", device="cuda")
             times.append(time.perf_counter() - t0)
             if r == 0:
-                LAUNCHES_PER_CALL[name] = {
-                    n: w.launch_count - before[n]
-                    for n, w in WRAPPERS.items()}
+                LAUNCHES_PER_CALL[name] = booked(before)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         pool_gib = sum(g.pool_bytes for g in ray_tracer.prepare_pipeline(
             p, "cuda", device="cuda").pipeline.graphs) / 2 ** 30
@@ -1471,35 +1468,33 @@ def profile_calls(fn, n=3):
             sum(e.count for e in k) / n, per)
 
 
-def uncounted(fn, *args, **kw):
-    """``fn(*args, **kw)`` with every kernel's launch counts (the total and
-    per device) left as they were: a call made as a reference or a
-    yardstick does not count for the path being driven."""
-    before = {n: (w.launch_count, dict(w.device_launches))
-              for n, w in WRAPPERS.items()}
-    try:
-        return fn(*args, **kw)
-    finally:
-        for n, w in WRAPPERS.items():
-            w.launch_count = before[n][0]
-            w.device_launches.clear()
-            w.device_launches.update(before[n][1])
+def booked(before):
+    """The launches booked in the launch ledger since its snapshot
+    ``before``, per C entry."""
+    from raytrace_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.per_entry(cuda_lib.since(before))
 
 
-def path_kernels_of(p):
-    """The kernels one f64 call of ``p`` must launch: B1 and B2, and B3,
-    or B4 where the emissivity amplify (ASE, no seed) takes its place."""
-    emis = p.gain[0].E0 is not None and p.seed is None
-    return ("trace", "bin_deposit") + (("amplify_emis",) if emis
-                                       else ("amplify",))
+def entries_of(p, **kw):
+    """The C entries a kernels call of ``p`` launches (``kw``: its
+    ``spectrum_dtype``): those of its prepared call's ``cfg["launches"]``."""
+    from raytrace_tpu_torch.models import ray_tracer
+
+    return tuple(ray_tracer.prepare_pipeline(p, "cuda", device=DEV, **kw)
+                 .cfg["launches"])
 
 
 def launched(what, names, fn, *args, **kw):
-    """``fn(*args, **kw)``; fails unless it launched each of ``names``
-    itself, so that the calls around it cannot stand in for it."""
-    before = {n: WRAPPERS[n].launch_count for n in names}
+    """``fn(*args, **kw)``; fails unless it launched each C entry of
+    ``names`` itself, so that the calls around it cannot stand in for
+    it."""
+    from raytrace_tpu_torch.ops import cuda_lib
+
+    before = cuda_lib.launches()
     out = fn(*args, **kw)
-    made = {n: WRAPPERS[n].launch_count - before[n] for n in names}
+    made = booked(before)
+    made = {n: made.get(n, 0) for n in names}
     if min(made.values()) <= 0:
         fail(f"{what}: launches {made}; each of {names} must launch")
     return out
@@ -1508,9 +1503,9 @@ def launched(what, names, fn, *args, **kw):
 def phase_sharded():
     """The multi-device path in this process: the sharded call and the
     sharded stream on a two-entry mesh of the card and on make_mesh().
-    The single-device calls beside them (references, the timing in turns,
-    the profile) do not count; every sharded call and stream must launch
-    the kernels of its problem itself."""
+    Every sharded call and stream must launch the kernels of its problem
+    itself, so that the single-device calls beside them (references, the
+    timing in turns, the profile) cannot stand in for it."""
     from raytrace_tpu_torch import (check_ans, create_image,
                                     create_image_stream, load_input)
     from raytrace_tpu_torch.parallel.mesh import make_mesh
@@ -1525,7 +1520,7 @@ def phase_sharded():
         for what, mesh in meshes.items():
             p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
             image, i_ang = launched(f"{name} sharded on {what}",
-                                    path_kernels_of(p), create_image_sharded,
+                                    entries_of(p), create_image_sharded,
                                     p, mesh, "cuda")
             check_output(image, i_ang, p)
             r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
@@ -1541,13 +1536,13 @@ def phase_sharded():
     mesh2 = meshes["2 entries on cuda:0"]
     for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
         p = synthetic_problem(**shape)
-        need = path_kernels_of(p)
-        single = uncounted(create_image, p, "cuda", device="cuda")
+        need = entries_of(p)
+        single = create_image(p, "cuda", device="cuda")
         create_image_sharded(p, mesh2, "cuda")  # warmup
         t_single, t_sharded = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            uncounted(create_image, p, "cuda", device="cuda")
+            create_image(p, "cuda", device="cuda")
             t_single.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
             sharded = launched(f"{name} sharded", need, create_image_sharded,
@@ -1569,9 +1564,8 @@ def phase_sharded():
               f"{[round(t, 5) for t in t_sharded]} (best "
               f"{min(t_sharded):.5f}), single {[round(t, 5) for t in t_single]}"
               f" (best {min(t_single):.5f})", flush=True)
-        prof = {"single": uncounted(profile_calls,
-                                    lambda: create_image(p, "cuda",
-                                                         device="cuda")),
+        prof = {"single": profile_calls(
+                    lambda: create_image(p, "cuda", device="cuda")),
                 "sharded": profile_calls(
                     lambda: create_image_sharded(p, mesh2, "cuda"))}
         for what, (dev_ms, n_launch, per) in prof.items():
@@ -1624,7 +1618,7 @@ def shipped_cells():
     paths = []
     for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
         p = synthetic_problem(**shape)
-        uncounted(create_image, p, "cuda", device="cuda")
+        create_image(p, "cuda", device="cuda")
         paths.append(os.path.join(cells, f"{name}.dat"))
         save_input(paths[-1], p)
     return paths
@@ -1767,6 +1761,7 @@ def phase_fuzz():
     """The fuzz tool's cases on the card with the sharded and stream arms;
     every case with 0 problems and every kernel variant run; then the
     replay check."""
+    from raytrace_tpu_torch.ops import cuda_lib
     from raytrace_tpu_torch.testing import synthetic_problem
     from raytrace_tpu_torch.tools import fuzz_oracle
 
@@ -1778,13 +1773,11 @@ def phase_fuzz():
     bad = 0
     for ci, kw in enumerate(cases):
         p = synthetic_problem(rng=ci, **kw)
-        before = {n: WRAPPERS[n].launch_count for n in ("amplify",
-                                                        "bin_deposit")}
+        before = cuda_lib.launches()
         bad += fuzz_oracle.run_case(ci, kw, sweep)
-        b3[b3_variant(p.N, p.euv_beam.nv)] += (
-            WRAPPERS["amplify"].launch_count - before["amplify"])
-        b2[b2_variant(p.euv_beam.nv)] += (
-            WRAPPERS["bin_deposit"].launch_count - before["bin_deposit"])
+        made = booked(before)
+        b3[b3_variant(p.N, p.euv_beam.nv)] += made.get("rt_amplify_seeded", 0)
+        b2[b2_variant(p.euv_beam.nv)] += made.get("rt_bin_deposit", 0)
     sweep.summary(len(cases), bad)
     print(f"fuzz census of launches: B3 {b3}, B2 {b2}", flush=True)
     if bad:
@@ -1880,17 +1873,14 @@ PREPARED_REL = 1e-12
 
 
 def eager_call(p, device=DEV):
-    """``p``'s call run from Python on the card, its launches uncounted:
-    the reference a graph replay is held against."""
+    """``p``'s call run from Python on the card: the reference a graph
+    replay is held against."""
     from raytrace_tpu_torch.models import ray_tracer
 
-    def call():
-        prep = ray_tracer.prepare_pipeline(p, "cuda", device=device,
-                                           eager=True)
-        return ray_tracer._finalize_call(
-            p, prep, prep.pipeline(*prep.operands),
-            os.path.join(OUT_DIR, "eager_failed_rays.dat"))
-    return uncounted(call)
+    prep = ray_tracer.prepare_pipeline(p, "cuda", device=device, eager=True)
+    return ray_tracer._finalize_call(
+        p, prep, prep.pipeline(*prep.operands),
+        os.path.join(OUT_DIR, "eager_failed_rays.dat"))
 
 
 def worst_rel(got, want):
@@ -1923,7 +1913,7 @@ def prepared_replays():
         want = [eager_call(u) for u in perturbed_problems(source, 3, salt=61,
                                                           scale=scale)]
         units = perturbed_problems(source, 3, salt=61, scale=scale)
-        got = [launched(f"{name} replay", path_kernels_of(u), create_image,
+        got = [launched(f"{name} replay", entries_of(u), create_image,
                         u, "cuda", device=DEV) for u in units]
         for u, (image, i_ang) in zip(units, got):
             check_output(image, i_ang, u)
@@ -1983,7 +1973,7 @@ def prepared_streams():
                     source, 6, salt=salt, scale=scale)]
                 units = perturbed_problems(source, 6, salt=salt, scale=scale)
                 t0 = time.perf_counter()
-                got = launched(f"{name} stream", path_kernels_of(units[0]),
+                got = launched(f"{name} stream", entries_of(units[0]),
                                lambda: list(create_image_stream(
                                    units, "cuda", device=DEV, depth=depth,
                                    reorder=reorder)))
@@ -2080,11 +2070,10 @@ def prepared_meshes():
                 return [sharding._finalize_sharded(runner.dispatch(u),
                                                    "unused.dat")
                         for u in units]
-            want = uncounted(run, True, perturbed_problems(source, 3,
-                                                           salt=83))
+            want = run(True, perturbed_problems(source, 3, salt=83))
             units = perturbed_problems(source, 3, salt=83)
             got = launched(f"{name} mesh graphs on {what}",
-                           path_kernels_of(units[0]), run, False, units)
+                           entries_of(units[0]), run, False, units)
             rel = worst_rel(got, want)
             prep = sharding.prepare_sharded(units[0], mesh, "cuda")
             n = [len(p.graphs) for p in prep.pipeline]
@@ -2155,9 +2144,9 @@ def phase_prepared():
 
 #: phase 13's scope, and the kernels whose device events must lie in it
 HOST_SCOPE = "create_image-annotated"
-HOST_KERNELS = (("trace", "trace_kernel"),
-                ("bin_deposit", "bin_deposit_kernel"),
-                ("amplify", "amplify_seeded_kernel"))
+HOST_KERNELS = (("rt_trace", "trace_kernel"),
+                ("rt_bin_deposit", "bin_deposit_kernel"),
+                ("rt_amplify_seeded", "amplify_seeded_kernel"))
 
 
 def phase_host():
@@ -2232,20 +2221,12 @@ def phase_host():
 
 #: phase 14's rows: the bench's source, ``-scale=`` and timed calls
 F32_ROWS = {"ase_small": 3, "seed_small": 3, "seed_scale4": 3, "scale16": 2}
-#: the f32 path's kernels: B1, the f32 instantiations of B2 and B3, and
+#: the f32 path's C entries: B1, the f32 instantiations of B2 and B3, and
 #: B4-f32
-F32_KERNELS = ("trace", "bin_deposit_f32", "amplify_f32", "amplify_emis_f32")
+F32_KERNELS = ("rt_trace", "rt_bin_deposit_f32", "rt_amplify_seeded_f32",
+               "rt_amplify_emis_f32")
 #: an f32 call against its f64 call (tests/test_golden.py's bound)
 F32_REL = 1e-5
-
-
-def f32_kernels_of(p):
-    """The kernels an f32 call of ``p`` must launch: B1 and B2-f32, and
-    B3-f32, or B4-f32 where the emissivity amplify (ASE) takes its
-    place."""
-    emis = "amplify_emis" in path_kernels_of(p)
-    skip = "amplify_f32" if emis else "amplify_emis_f32"
-    return tuple(n for n in F32_KERNELS if n != skip)
 
 
 def timed_split(p, **kw):
@@ -2271,29 +2252,30 @@ def phase_f32():
     goldens; the bench's ``ase_small``, ``seed_small``, ``seed_scale4``
     and ``scale16`` rows through their f32 graphs (a warm-up that captures,
     then timed calls with the stage split, in turns with the f64 call of
-    the same problem, which does not count), each f32 result within 1e-5
-    of the f64 call, the device time per kernel under the profiler, and
-    what the card reserves beyond the cached graphs' pools (the bench's
-    ``graph_memory_check``: the f32 and f64 graphs of a row are two
-    pools); an f32 stream at depth 2 and f32 sharded calls and a mesh
-    stream on two entries of the card, each within 1e-12 of the
-    synchronous f32 call. B1, B2-f32, B3-f32 and B4-f32 must have
-    launched."""
+    the same problem), each f32 result within 1e-5 of the f64 call, the
+    device time per kernel under the profiler, and what the card reserves
+    beyond the cached graphs' pools (the bench's ``graph_memory_check``:
+    the f32 and f64 graphs of a row are two pools); an f32 stream at depth
+    2 and f32 sharded calls and a mesh stream on two entries of the card,
+    each within 1e-12 of the synchronous f32 call. B1, B2-f32, B3-f32 and
+    B4-f32 must have launched."""
     from raytrace_tpu_torch import (check_ans, create_image,
                                     create_image_stream, load_input)
     from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.ops import cuda_lib
     from raytrace_tpu_torch.parallel.mesh import make_mesh
     from raytrace_tpu_torch.parallel.sharding import create_image_sharded
     from raytrace_tpu_torch.testing import (fresh_problem,
                                             perturbed_problems)
 
-    F32 = torch.float32
+    f32 = torch.float32
     dev = torch.device("cuda", torch.cuda.current_device())
     for name in ("golden_ase.dat", "golden_seed.dat"):
         p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
-        image, i_ang = launched(f"{name} in f32", f32_kernels_of(p),
+        image, i_ang = launched(f"{name} in f32",
+                                entries_of(p, spectrum_dtype=f32),
                                 create_image, p, "cuda",
-                                spectrum_dtype=F32, device=DEV)
+                                spectrum_dtype=f32, device=DEV)
         check_output(image, i_ang, p)
         r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
         if not check_ans(image0, i_ang0, image, i_ang) or max(r_img,
@@ -2311,20 +2293,18 @@ def phase_f32():
         rays = p.seed_beam if p.seed is not None else p.euv_beam
         rays = rays.nx * rays.ny * rays.na * rays.nb
         torch.cuda.reset_peak_memory_stats(dev)
-        want = uncounted(create_image, p, "cuda", device=DEV)
+        want = create_image(p, "cuda", device=DEV)
         t0 = time.perf_counter()
-        create_image(p, "cuda", spectrum_dtype=F32, device=DEV)
+        create_image(p, "cuda", spectrum_dtype=f32, device=DEV)
         warm = time.perf_counter() - t0
         split32, split64 = [], []
         for r in range(reps):
-            before = {n: w.launch_count for n, w in WRAPPERS.items()}
-            got, sp = timed_split(p, spectrum_dtype=F32)
+            before = cuda_lib.launches()
+            got, sp = timed_split(p, spectrum_dtype=f32)
             split32.append(sp)
             if r == 0:
-                LAUNCHES_PER_CALL[f"{row}_f32"] = {
-                    n: w.launch_count - before[n]
-                    for n, w in WRAPPERS.items()}
-            split64.append(uncounted(timed_split, p)[1])
+                LAUNCHES_PER_CALL[f"{row}_f32"] = booked(before)
+            split64.append(timed_split(p)[1])
         check_output(*got, p)
         rel = max(rel_l2(got[0], want[0]), rel_l2(got[1], want[1]))
         if rel > F32_REL:
@@ -2337,8 +2317,8 @@ def phase_f32():
             fail(f"{row} in f32: the card reserves {over} bytes beyond the "
                  f"graphs' pools (peak {peak})")
         prof32 = profile_calls(lambda: create_image(
-            p, "cuda", spectrum_dtype=F32, device=DEV), n=2)
-        prof64 = uncounted(profile_calls, lambda: create_image(
+            p, "cuda", spectrum_dtype=f32, device=DEV), n=2)
+        prof64 = profile_calls(lambda: create_image(
             p, "cuda", device=DEV), n=2)
         best32 = min(x["total_s"] for x in split32)
         best64 = min(x["total_s"] for x in split64)
@@ -2368,14 +2348,13 @@ def phase_f32():
     for row in ("ase_small", "seed_small"):
         source, _ = row_source(row)
         units = perturbed_problems(source, 4, salt=7)
-        need = f32_kernels_of(units[0])
-        sync = [uncounted(create_image, u, "cuda", spectrum_dtype=F32,
-                          device=DEV)
+        need = entries_of(units[0], spectrum_dtype=f32)
+        sync = [create_image(u, "cuda", spectrum_dtype=f32, device=DEV)
                 for u in perturbed_problems(source, 4, salt=7)]
 
         def stream(**kw):
             return list(create_image_stream(
-                perturbed_problems(source, 4, salt=7), "cuda", None, F32,
+                perturbed_problems(source, 4, salt=7), "cuda", None, f32,
                 depth=2, **kw))
 
         got = {"stream": launched(f"{row} f32 stream", need, stream,
@@ -2384,7 +2363,7 @@ def phase_f32():
                                        stream, mesh=mesh2),
                "sharded": [launched(f"{row} f32 sharded", need,
                                     create_image_sharded, u, mesh2, "cuda",
-                                    None, F32) for u in units]}
+                                    None, f32) for u in units]}
         worst = {k: worst_rel(v, sync) for k, v in got.items()}
         if max(worst.values()) > 1e-12 or any(len(v) != 4
                                               for v in got.values()):
@@ -2403,9 +2382,6 @@ MULTI_REPS = {"ase_small": 3, "seed_small": 3, "scale64": 2,
 MULTI_REL = 1e-12
 
 
-#: the kernels a call of phase 15's names must not launch
-ROUTED_KERNELS = ("trace", "bin_deposit", "amplify", "bin_deposit_f32",
-                  "amplify_f32", "amplify_emis", "amplify_emis_f32")
 #: the reference's CPU-class names: they run on the CPU on a card host too
 CPU_CLASS = ("cpu", "threads", "openmp", "kokkos-serial", "kokkos-openmp",
              "kokkos-thread")
@@ -2418,20 +2394,21 @@ def routed_call(what, p, name):
     ``cpu`` and no kernel was launched. Returns the output and seconds."""
     from raytrace_tpu_torch import create_image
     from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.ops import cuda_lib
 
     card = torch.device("cuda", torch.cuda.current_device())
-    before = {n: WRAPPERS[n].launch_count for n in ROUTED_KERNELS}
+    before = cuda_lib.launches()
     torch.cuda.synchronize(card)
     torch.cuda.reset_peak_memory_stats(card)
     base = torch.cuda.memory_allocated(card)
     t0 = time.perf_counter()
     out = create_image(p, name)
     dt = time.perf_counter() - t0
-    made = {n: WRAPPERS[n].launch_count - before[n] for n in ROUTED_KERNELS}
+    made = booked(before)
     pipe = next(reversed(ray_tracer._PIPELINE_CACHE.values()))
     grew = torch.cuda.max_memory_allocated(card) - base
     resolved = ray_tracer.resolve_method(p, name)
-    if (any(made.values()) or resolved != "cpu"
+    if (made or resolved != "cpu"
             or not isinstance(pipe, ray_tracer._EagerPipeline)
             or pipe.cfg["device"] != card or pipe.cfg["graph"]
             or grew < out[0].nbytes):
@@ -2449,6 +2426,7 @@ def phase_routing():
     from raytrace_tpu_torch import (check_ans, create_image,
                                     create_image_stream, load_input)
     from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.ops import cuda_lib
     from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
                                             perturbed_problems,
                                             synthetic_problem)
@@ -2457,11 +2435,11 @@ def phase_routing():
     rec = {}
 
     def against_cuda(what, p, got):
-        """The largest rel L2 of ``got`` against the cuda call of ``p``
-        (which does not count), and that call's seconds (a replay)."""
-        uncounted(create_image, p, "cuda", device="cuda")  # captures
+        """The largest rel L2 of ``got`` against the cuda call of ``p``, and
+        that call's seconds (a replay)."""
+        create_image(p, "cuda", device="cuda")  # captures
         t0 = time.perf_counter()
-        want = uncounted(create_image, p, "cuda", device="cuda")
+        want = create_image(p, "cuda", device="cuda")
         dt = time.perf_counter() - t0
         check_output(*got, p)
         worst = max(rel_l2(got[0], want[0]), rel_l2(got[1], want[1]))
@@ -2500,10 +2478,10 @@ def phase_routing():
 
     # a stream of lax calls: eager calls in flight at depth 2, no graph
     source = functools.partial(synthetic_problem, **ASE_SHAPE)
-    want = [uncounted(create_image, u, "cuda", device="cuda")
+    want = [create_image(u, "cuda", device="cuda")
             for u in perturbed_problems(source, 3, salt=71)]
     graphs = len(ray_tracer._graph_pipelines(card))
-    before = {n: WRAPPERS[n].launch_count for n in ROUTED_KERNELS}
+    before = cuda_lib.launches()
     units = perturbed_problems(source, 3, salt=71)
     t0 = time.perf_counter()
     worst, yields = 0.0, 0
@@ -2513,9 +2491,9 @@ def phase_routing():
                     rel_l2(i_ang, want[k][1]))
         yields += 1
     dt = time.perf_counter() - t0
-    made = {n: WRAPPERS[n].launch_count - before[n] for n in ROUTED_KERNELS}
+    made = booked(before)
     after = len(ray_tracer._graph_pipelines(card))
-    if yields != 3 or worst > 1e-12 or any(made.values()) or after != graphs:
+    if yields != 3 or worst > 1e-12 or made or after != graphs:
         fail(f"lax stream: {yields} yields, worst rel L2 against cuda "
              f"{worst}, launches {made}, graph pipelines {graphs} -> "
              f"{after}")
@@ -2583,14 +2561,16 @@ def topology(cards):
 
 
 def launched_on(what, names, devices, fn, *args, **kw):
-    """``fn(*args, **kw)``; fails unless each of ``names`` launched on each
-    of ``devices`` in it (the wrappers' per-device counts). Returns the
-    result and the launches per kernel and device."""
+    """``fn(*args, **kw)``; fails unless each C entry of ``names`` launched
+    on each of ``devices`` in it (the launch ledger's per-device counts).
+    Returns the result and the launches per entry and device."""
+    from raytrace_tpu_torch.ops import cuda_lib
+
     devices = list(dict.fromkeys(torch.device(d) for d in devices))
-    before = {n: dict(WRAPPERS[n].device_launches) for n in names}
+    before = cuda_lib.launches()
     out = fn(*args, **kw)
-    made = {n: {str(d): WRAPPERS[n].device_launches.get(d, 0)
-                - before[n].get(d, 0) for d in devices} for n in names}
+    since = cuda_lib.since(before)
+    made = {n: {str(d): since[(n, d)] for d in devices} for n in names}
     if min(v for m in made.values() for v in m.values()) <= 0:
         fail(f"{what}: launches per card {made}; each of {names} must "
              f"launch on each of {[str(d) for d in devices]}")
@@ -2646,10 +2626,11 @@ def multicard_single(cards):
     torch.cuda.set_device(0)
     home = torch.device("cuda:0")
     others = [d for d in dict.fromkeys(cards) if d != home]
-    want = uncounted(kernel_chain, home)
+    want = kernel_chain(home)
     for dev in others:
         got, made = launched_on(f"kernels on {dev}",
-                                ("trace", "amplify", "bin_deposit"), (dev,),
+                                ("rt_trace", "rt_amplify_seeded",
+                                 "rt_bin_deposit"), (dev,),
                                 kernel_chain, dev)
         exact = [k for k in ("gvl", "evl", "ivl", "exit_x", "exit_y",
                              "exit_a", "exit_b", "escaped", "perp", "Iv",
@@ -2672,14 +2653,14 @@ def multicard_single(cards):
     out = {}
     for name, make in cases:
         p = make()
-        base = uncounted(create_image, p, "cuda", device=home)
-        again = uncounted(create_image, make(), "cuda", device=home)
+        base = create_image(p, "cuda", device=home)
+        again = create_image(make(), "cuda", device=home)
         row = dict(repeat_cuda0=max(rel_l2(again[0], base[0]),
                                     rel_l2(again[1], base[1])),
                    repeat_bitwise=bool(np.array_equal(again[0], base[0])
                                        and np.array_equal(again[1], base[1])))
         for dev in others:
-            got, _ = launched_on(f"{name} on {dev}", path_kernels_of(p),
+            got, _ = launched_on(f"{name} on {dev}", entries_of(p),
                                  (dev,), create_image, make(), "cuda",
                                  device=dev)
             check_output(*got, p)
@@ -2705,7 +2686,7 @@ def multicard_sharded(cards):
     for name in ("golden_ase.dat", "golden_seed.dat"):
         p, image0, i_ang0 = load_input(os.path.join(FIXTURES, name))
         (image, i_ang), made = launched_on(
-            f"{name} sharded on {len(cards)} cards", path_kernels_of(p),
+            f"{name} sharded on {len(cards)} cards", entries_of(p),
             cards, create_image_sharded, p, cards, "cuda")
         check_output(image, i_ang, p)
         r_img, r_ang = rel_l2(image, image0), rel_l2(i_ang, i_ang0)
@@ -2731,10 +2712,11 @@ def multicard_rows(cards):
     """The bench's rows on one card and on ``cards`` in one run
     (``tools/bench.run`` with ``mesh``), once with the calls run from
     Python (``eager``) and once through their graphs: every gate true,
-    every card launching B1 and B2 (and B3 on the seeded rows) in each mesh
-    row; the s/call beside the 1-card s/call, the dispatch, the busy
-    share, each entry's capture and nodes, each card's peak memory, first
-    and last marks and the reduction's time."""
+    every card launching each C entry of the row's call (B1, B2, and B3
+    or B4) in each mesh row; the s/call beside the 1-card s/call, the
+    dispatch, the busy share, each entry's capture and nodes, each card's
+    peak memory, first and last marks and the reduction's time."""
+    from raytrace_tpu_torch.testing import fresh_problem
     from raytrace_tpu_torch.tools import bench
 
     D = len(cards)
@@ -2749,11 +2731,10 @@ def multicard_rows(cards):
         rows = {}
         for name in MULTI_REPS:
             p = f"{name}_mesh{D}_"
-            need = ("trace", "bin_deposit") + (
-                ("amplify",) if name.startswith("seed") else ())
+            need = entries_of(fresh_problem(*row_source(name)))
             per_card = res[p + "launches_per_card"]
             short = [(k, str(d)) for k in need for d in cards
-                     if per_card[k].get(str(d), 0) <= 0]
+                     if per_card.get(k, {}).get(str(d), 0) <= 0]
             if short:
                 fail(f"{p[:-1]} {how}: no launches of {short}: {per_card}")
             held = (res[f"{name}_graph_memory_check"],
@@ -2835,7 +2816,7 @@ def multicard_profile(cards):
     out = {}
     for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
         p = synthetic_problem(**shape)
-        prof = {"1 card": uncounted(profile_calls, lambda: create_image(
+        prof = {"1 card": profile_calls(lambda: create_image(
                     p, "cuda", device="cuda:0")),
                 f"{len(cards)} cards": profile_calls(
                     lambda: create_image_sharded(p, cards, "cuda"))}
@@ -2862,7 +2843,7 @@ def multicard_stream(cards):
     out = {}
     for name, shape in (("ase", ASE_SHAPE), ("seed", SEED_SHAPE)):
         source = functools.partial(synthetic_problem, **shape)
-        sync = [uncounted(create_image_sharded, u, cards, "cuda")
+        sync = [create_image_sharded(u, cards, "cuda")
                 for u in perturbed_problems(source, 4, salt=5)]
         units = perturbed_problems(source, 4, salt=5)
 
@@ -2878,7 +2859,7 @@ def multicard_stream(cards):
 
         t0 = time.perf_counter()
         (marks, worst), made = launched_on(f"mesh stream {name}",
-                                           path_kernels_of(units[0]), cards,
+                                           entries_of(units[0]), cards,
                                            stream)
         if len(marks) != 4 or worst > MULTI_REL:
             fail(f"mesh stream {name}: {len(marks)} yields, worst rel L2 "
@@ -2984,13 +2965,14 @@ MULTICARD_NOTE = ("phase 11 (the multi-card path) needs two or more cards: "
 
 
 def run_path(what, phase, names):
-    """Drive one path with every count at 0 (the totals and the per-device
-    counts); each kernel of the path must have launched."""
-    for w in WRAPPERS.values():
-        w.launch_count = 0
-        w.device_launches.clear()
+    """Drive one path; each C entry of ``names`` must have launched in it
+    (the launches booked in the launch ledger meanwhile)."""
+    from raytrace_tpu_torch.ops import cuda_lib
+
+    before = cuda_lib.launches()
     out = phase()
-    counts = {n: WRAPPERS[n].launch_count for n in names}
+    made = booked(before)
+    counts = {n: made.get(n, 0) for n in names}
     print(f"launches on the {what}: {counts}", flush=True)
     for n, c in counts.items():
         if c <= 0:
@@ -3026,9 +3008,7 @@ def main(argv) -> int:
         return 1
     card = card_line()
     print(card, flush=True)
-    from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib,
-                                        deposit_kernel, trace_kernel)
-    from raytrace_tpu_torch.tools import gather_probe
+    from raytrace_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
     cuda_lib.load_library()
@@ -3040,14 +3020,7 @@ def main(argv) -> int:
               f"stores, {loads} bytes spill loads", flush=True)
     record.update(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=info["seconds"])
-    WRAPPERS.update({"trace": trace_kernel, "bin_deposit": deposit_kernel,
-                     "amplify": amplify_kernel,
-                     "bin_deposit_f32": deposit_kernel.F32,
-                     "amplify_f32": amplify_kernel.F32,
-                     "amplify_emis": amplify_kernel.EMIS,
-                     "amplify_emis_f32": amplify_kernel.EMIS_F32,
-                     "gather_probe": gather_probe})
-    path_kernels = ("trace", "bin_deposit", "amplify")
+    path_kernels = ("rt_trace", "rt_bin_deposit", "rt_amplify_seeded")
 
     if multicard:
         _, record["multicard_launches"] = run_path(
@@ -3060,11 +3033,11 @@ def main(argv) -> int:
 
     # the ASE calls of these two paths run B4
     outs, launches = run_path("main path", phase_main_path,
-                              path_kernels + ("amplify_emis",))
+                              path_kernels + ("rt_amplify_emis",))
     _, stream_launches = run_path("stream path", phase_stream,
-                                  path_kernels + ("amplify_emis",))
+                                  path_kernels + ("rt_amplify_emis",))
     _, probe_launches = run_path("probe path", phase_probe_path,
-                                 ("gather_probe",))
+                                 ("rt_gather_probe",))
     launches.update(probe_launches)
     record["stream_launches"] = stream_launches
 
@@ -3092,30 +3065,33 @@ def main(argv) -> int:
         print(MULTICARD_NOTE, flush=True)
 
     kernels = []
-    for name, src, replaces in (
-            ("trace", "trace.cu", "raytrace_tpu/ops/pallas_kernel.py:402"),
-            ("bin_deposit", "deposit.cu",
+    for name, entry, src, replaces in (
+            ("trace", "rt_trace", "trace.cu",
+             "raytrace_tpu/ops/pallas_kernel.py:402"),
+            ("bin_deposit", "rt_bin_deposit", "deposit.cu",
              "raytrace_tpu/ops/deposit_kernel.py:76"),
-            ("amplify", "amplify.cu",
+            ("amplify", "rt_amplify_seeded", "amplify.cu",
              "raytrace_tpu/ops/pallas_amplify.py:123"),
-            ("amplify_emis", "emissivity.cu",
+            ("amplify_emis", "rt_amplify_emis", "emissivity.cu",
              "none: XLA, raytrace_tpu/ops/spectrum.py:156-183"),
-            ("bin_deposit_f32", "deposit.cu",
+            ("bin_deposit_f32", "rt_bin_deposit_f32", "deposit.cu",
              "raytrace_tpu/ops/deposit_kernel.py:76"),
-            ("amplify_f32", "amplify.cu",
+            ("amplify_f32", "rt_amplify_seeded_f32", "amplify.cu",
              "raytrace_tpu/ops/pallas_amplify.py:123"),
-            ("amplify_emis_f32", "emissivity.cu",
+            ("amplify_emis_f32", "rt_amplify_emis_f32", "emissivity.cu",
              "none: XLA, raytrace_tpu/ops/spectrum.py:160-179"),
-            ("gather_probe", "gather_probe.cu", "tools/vpu_probe.py:112")):
+            ("gather_probe", "rt_gather_probe", "gather_probe.cu",
+             "tools/vpu_probe.py:112")):
         # the f32 instantiations' launches on the f32 path's calls
         calls = ("seed_small_f32", "ase_small_f32") if "f32" in name \
             else ("seed", "ase")
         kernels.append(dict(
-            name=name, route="cuda", source="raytrace_tpu_torch/csrc/" + src,
-            replaces=replaces, launches=launches[name], **results[name],
+            name=name, entry=entry, route="cuda",
+            source="raytrace_tpu_torch/csrc/" + src, replaces=replaces,
+            launches=launches[entry], **results[name],
             launches_per_call={
-                "seeded": LAUNCHES_PER_CALL[calls[0]][name],
-                "ase": LAUNCHES_PER_CALL[calls[1]][name]}))
+                "seeded": LAUNCHES_PER_CALL[calls[0]].get(entry, 0),
+                "ase": LAUNCHES_PER_CALL[calls[1]].get(entry, 0)}))
     record["kernels"] = kernels
     finish("chip_smoke.json", [json.dumps({"kernels": kernels})])
     return 0

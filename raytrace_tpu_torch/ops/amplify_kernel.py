@@ -34,10 +34,9 @@ product is an exact zero or finite with magnitude at least 2^-100
 (``csrc/amplify.cu``).
 
 :func:`amplify_gain` dispatches on the tensors' device: CPU tensors take the
-plain twin :func:`amplify_gain_plain`, CUDA tensors launch the kernel (or
-raise) on their own card. ``launch_count`` counts kernel launches of both
-instantiations, ``device_launches`` them per device, and :data:`F32` the
-f32 instantiation's alone.
+plain twin :func:`amplify_gain_plain`, CUDA tensors launch the kernel of
+their dtype (C entry :func:`entry`, booked in ``cuda_lib``'s launch
+ledger) or raise, on their own card.
 
 The ASE path's amplification with gain and emissivity from a zero entry
 spectrum is kernel B4 (``csrc/emissivity.cu``) in f64 and kernel B4-f32
@@ -49,8 +48,7 @@ for CPU tensors. B4-f32 computes the twin's f32 arithmetic operation by
 operation (the two-float helpers of ``csrc/twofloat.cuh``, shared with
 B3-f32), so it is bitwise equal to it. Neither replaces a Pallas kernel:
 ``raytrace_tpu`` computes the step in XLA
-(``raytrace_tpu/ops/spectrum.py:156-183``). Their launches are counted
-apart, in :data:`EMIS` and :data:`EMIS_F32`.
+(``raytrace_tpu/ops/spectrum.py:156-183``).
 """
 
 from __future__ import annotations
@@ -64,8 +62,7 @@ from raytrace_tpu_torch.ops import twofloat as tf
 
 __all__ = ["amplify_gain", "amplify_gain_plain", "log_gain_plain",
            "log_gain2_plain", "iv_flags", "FLAG_NEG", "FLAG_NAN",
-           "launch_count", "device_launches", "F32", "amplify_emis",
-           "amplify_emis_plain", "EMIS", "EMIS_F32"]
+           "amplify_emis", "amplify_emis_plain", "entry"]
 
 #: flag bits per ray: some Iv < 0 (failure code -2), some Iv NaN (code -3)
 FLAG_NEG, FLAG_NAN = 1, 2
@@ -73,18 +70,14 @@ FLAG_NEG, FLAG_NAN = 1, 2
 #: the kernel's widest spectrum (one thread per frequency or pair)
 _K_MAX = 256
 
-#: kernel launches since import (or since a caller last reset it)
-launch_count = 0
-#: the same launches per device
-device_launches: dict = {}
-#: the launches of the f32 instantiation (also counted above)
-F32 = cuda_lib.Launches()
-#: the launches of kernel B4, the emissivity amplify (not counted above)
-EMIS = cuda_lib.Launches()
-#: the launches of kernel B4-f32, its f32 form (counted apart from B4's)
-EMIS_F32 = cuda_lib.Launches()
-
 _DTYPES = (torch.float64, torch.float32)
+
+
+def entry(dtype: torch.dtype, emis: bool = False) -> str:
+    """The C entry that amplifies into a spectrum of ``dtype``: the seeded
+    amplify (B3), or with ``emis`` the emissivity amplify (B4)."""
+    name = "rt_amplify_emis" if emis else "rt_amplify_seeded"
+    return name + "_f32" if dtype == torch.float32 else name
 
 
 def log_gain_plain(ivl: torch.Tensor, gvl: torch.Tensor,
@@ -207,18 +200,13 @@ def amplify_gain(f: torch.Tensor, fv: torch.Tensor, escaped: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     Iv, flags, _ = _launch(cuda_lib.load_library(), f, fv, escaped, ivl, gvl,
                            gv, stream, dtype=dtype)
-    global launch_count
-    launch_count += 1
-    cuda_lib.count_launch(device_launches, f.device)
-    if dtype == torch.float32:
-        F32.count(f.device)
     return Iv, flags
 
 
 def _launch(lib, f, fv, escaped, ivl, gvl, gv, stream, log_gain=False,
             dtype=torch.float64):
-    """Launch ``rt_amplify_seeded`` (``rt_amplify_seeded_f32`` for
-    ``dtype`` f32) of ``lib`` on ``stream``; inputs already checked.
+    """Launch :func:`entry` of ``dtype`` of ``lib`` on ``stream``; inputs
+    already checked.
     Returns ``(Iv, flags, log-gain or None)``: the f64 log-gain [B, K], or
     the f32 pair's hi and lo as [2, B, K]."""
     B, K = f.shape[0], fv.shape[0]
@@ -234,14 +222,12 @@ def _launch(lib, f, fv, escaped, ivl, gvl, gv, stream, log_gain=False,
         gl = torch.empty(((2, B, K) if f32 else (B, K)), dtype=dtype,
                          device=dev)
     pairs = K % 2 == 0 and gv.data_ptr() % 8 == 0
-    name = "rt_amplify_seeded_f32" if f32 else "rt_amplify_seeded"
-    with cuda_lib.device_guard(dev):
-        rc = getattr(lib, name)(
-            f.data_ptr(), fv.data_ptr(), escaped.data_ptr(), ivl.data_ptr(),
-            gvl.data_ptr(), gv.data_ptr(), B, nseg, nsub, gv.shape[1], K,
-            int(pairs), Iv.data_ptr(), flags.data_ptr(),
-            None if gl is None else gl.data_ptr(), stream)
-    cuda_lib.check(rc, name)
+    cuda_lib.launch(
+        lib, entry(dtype), dev,
+        f.data_ptr(), fv.data_ptr(), escaped.data_ptr(), ivl.data_ptr(),
+        gvl.data_ptr(), gv.data_ptr(), B, nseg, nsub, gv.shape[1], K,
+        int(pairs), Iv.data_ptr(), flags.data_ptr(),
+        None if gl is None else gl.data_ptr(), stream)
     return Iv, flags[:B], gl
 
 
@@ -304,16 +290,13 @@ def amplify_emis(ivl: torch.Tensor, gvl: torch.Tensor, evl: torch.Tensor,
         return (torch.empty((0, K), dtype=dtype, device=ivl.device),
                 torch.empty(0, dtype=torch.uint8, device=ivl.device))
     stream = torch.cuda.current_stream(ivl.device).cuda_stream
-    out = _launch_emis(cuda_lib.load_library(), ivl, gvl, evl, gv, stream,
-                       dtype)
-    (EMIS_F32 if dtype == torch.float32 else EMIS).count(ivl.device)
-    return out
+    return _launch_emis(cuda_lib.load_library(), ivl, gvl, evl, gv, stream,
+                        dtype)
 
 
 def _launch_emis(lib, ivl, gvl, evl, gv, stream, dtype=torch.float64):
-    """Launch ``rt_amplify_emis`` (``rt_amplify_emis_f32`` for ``dtype``
-    f32) of ``lib`` on ``stream``; inputs already checked. Returns ``(Iv,
-    flags)``."""
+    """Launch :func:`entry` of ``dtype`` with ``emis`` of ``lib`` on
+    ``stream``; inputs already checked. Returns ``(Iv, flags)``."""
     B, nseg, nsub = ivl.shape
     K = gv.shape[2]
     dev = ivl.device
@@ -322,12 +305,9 @@ def _launch_emis(lib, ivl, gvl, evl, gv, stream, dtype=torch.float64):
     flags = torch.empty(-(-max(B, 1) // 4) * 4, dtype=torch.uint8,
                         device=dev)
     pairs = K % 2 == 0 and gv.data_ptr() % 8 == 0
-    name = ("rt_amplify_emis_f32" if dtype == torch.float32
-            else "rt_amplify_emis")
-    with cuda_lib.device_guard(dev):
-        rc = getattr(lib, name)(
-            ivl.data_ptr(), gvl.data_ptr(), evl.data_ptr(), gv.data_ptr(), B,
-            nseg, nsub, gv.shape[1], K, int(pairs), Iv.data_ptr(),
-            flags.data_ptr(), stream)
-    cuda_lib.check(rc, name)
+    cuda_lib.launch(
+        lib, entry(dtype, emis=True), dev,
+        ivl.data_ptr(), gvl.data_ptr(), evl.data_ptr(), gv.data_ptr(), B,
+        nseg, nsub, gv.shape[1], K, int(pairs), Iv.data_ptr(),
+        flags.data_ptr(), stream)
     return Iv, flags[:B]

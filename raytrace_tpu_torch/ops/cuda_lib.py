@@ -13,9 +13,15 @@ Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
 
 A C entry launches on the current device, and ``rt_trace`` sizes its grid
-from that device's occupancy; the wrappers therefore launch under
-:func:`device_guard` of their inputs, so that a kernel whose tensors lie on
-``cuda:k`` runs on ``cuda:k`` whatever device the caller made current.
+from that device's occupancy; :func:`launch`, through which every wrapper
+calls its entry, therefore runs it under :func:`device_guard` of the
+inputs' device, so that a kernel whose tensors lie on ``cuda:k`` runs on
+``cuda:k`` whatever device the caller made current.
+
+The port's one launch counter is the ledger here: the launches booked per
+``(C entry, device)``. :func:`launch` books each call of an entry; a CUDA
+graph's replay books the launches its capture made (:func:`book`).
+Readers diff two snapshots (:func:`launches`, :func:`since`).
 """
 
 from __future__ import annotations
@@ -27,13 +33,14 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
 
-__all__ = ["load_library", "build_info", "check", "device_guard",
-           "count_launch", "Launches", "graph_nodes", "NVCC_FLAGS",
-           "CSRC_DIR"]
+__all__ = ["load_library", "build_info", "check", "device_guard", "launch",
+           "launches", "since", "per_entry", "book", "graph_nodes",
+           "NVCC_FLAGS", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "raytrace_tpu_torch"
@@ -169,26 +176,44 @@ def device_guard(dev):
     return contextlib.nullcontext()
 
 
-def count_launch(counts: dict, dev) -> None:
-    """Add one launch on ``dev`` to a wrapper's per-device counts (beside
-    its total ``launch_count``)."""
+#: launches booked per (C entry name, device) since import
+_LEDGER: Counter = Counter()
+
+
+def launch(lib, name: str, dev, *args) -> None:
+    """Call the C entry ``name`` of ``lib`` with ``args`` under
+    :func:`device_guard` of ``dev``, raise if it reported an error, and
+    book one launch of it on ``dev``."""
     dev = torch.device(dev)
-    counts[dev] = counts.get(dev, 0) + 1
+    with device_guard(dev):
+        rc = getattr(lib, name)(*args)
+    check(rc, name)
+    _LEDGER[(name, dev)] += 1
 
 
-class Launches:
-    """The launches of one instantiation of a kernel: ``launch_count`` in
-    all and ``device_launches`` per device, beside its wrapper's totals
-    (the same two names, so a counter of either kind reads alike)."""
+def launches() -> Counter:
+    """A snapshot of the ledger: launches per ``(entry, device)``."""
+    return Counter(_LEDGER)
 
-    def __init__(self):
-        self.launch_count = 0
-        self.device_launches: dict = {}
 
-    def count(self, dev) -> None:
-        """One launch on ``dev``."""
-        self.launch_count += 1
-        count_launch(self.device_launches, dev)
+def since(before: Counter) -> Counter:
+    """The launches booked after the snapshot ``before``, per ``(entry,
+    device)``, those of no launch left out."""
+    return _LEDGER - before
+
+
+def per_entry(counts) -> dict:
+    """``(entry, device)`` counts summed over the devices: ``{entry: n}``."""
+    out: dict = {}
+    for (name, _dev), n in counts.items():
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def book(counts) -> None:
+    """Add a batch of ``(entry, device)`` counts to the ledger (negative
+    counts take launches back out)."""
+    _LEDGER.update(counts)
 
 
 def check(rc: int, name: str) -> None:

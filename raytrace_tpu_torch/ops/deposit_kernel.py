@@ -31,9 +31,8 @@ pass over K, one atomic per run of equal bins and frequency, as the f64
 kernel issues them.
 
 :func:`bin_deposit` dispatches on the device: CPU tensors take the plain
-twin, CUDA tensors launch the kernel (or raise) on their own card.
-``launch_count`` counts kernel launches of both kernels, ``device_launches``
-them per device, and :data:`F32` the f32 kernel's alone.
+twin, CUDA tensors launch the kernel of their dtype (C entry :func:`entry`,
+booked in ``cuda_lib``'s launch ledger) or raise, on their own card.
 """
 
 from __future__ import annotations
@@ -44,19 +43,17 @@ from raytrace_tpu_torch.models.problem import DeviceBeam
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.binning import bin_indices
 
-__all__ = ["bin_deposit", "bin_deposit_plain", "deposit_plain",
-           "launch_count", "device_launches", "F32"]
+__all__ = ["bin_deposit", "bin_deposit_plain", "deposit_plain", "entry"]
 
-#: kernel launches since import (or since a caller last reset it)
-launch_count = 0
-#: the same launches per device
-device_launches: dict = {}
-#: the launches of the f32 kernel (also counted above)
-F32 = cuda_lib.Launches()
 #: the f32 kernel's tile: its rays (at the shipped K) and its block's
 #: threads, as ``kTileRays`` and ``kTileThreads`` in csrc/deposit.cu
 F32_TILE_RAYS = 32
 F32_TILE_THREADS = 64
+
+
+def entry(dtype: torch.dtype) -> str:
+    """The C entry that deposits spectra of ``dtype``."""
+    return "rt_bin_deposit_f32" if dtype == torch.float32 else "rt_bin_deposit"
 
 
 def deposit_plain(out: torch.Tensor, contrib: torch.Tensor,
@@ -138,34 +135,26 @@ def bin_deposit(Iv, coords, ok, beam: DeviceBeam, method: int,
     stream = torch.cuda.current_stream(Iv.device).cuda_stream
     _launch(cuda_lib.load_library(), Iv, coords, ok, beam, method, scale,
             image_acc, iang_acc, stream)
-    global launch_count
-    launch_count += 1
-    cuda_lib.count_launch(device_launches, Iv.device)
-    if Iv.dtype == torch.float32:
-        F32.count(Iv.device)
 
 
 def _launch(lib, Iv, coords, ok, beam, method, scale, image_acc, iang_acc,
             stream, bins=False):
-    """Launch ``rt_bin_deposit`` (``rt_bin_deposit_f32`` for f32 ``Iv``)
-    of ``lib`` on ``stream``; inputs already checked. Returns the [B, 2]
-    i32 bins (-1 for none) when ``bins``, else None."""
+    """Launch :func:`entry` of ``Iv``'s dtype of ``lib`` on ``stream``;
+    inputs already checked. Returns the [B, 2] i32 bins (-1 for none)
+    when ``bins``, else None."""
     B, K = Iv.shape
     out = (torch.empty((B, 2), dtype=torch.int32, device=Iv.device)
            if bins else None)
     pairs = K % 2 == 0 and Iv.data_ptr() % (2 * Iv.element_size()) == 0
-    name = ("rt_bin_deposit_f32" if Iv.dtype == torch.float32
-            else "rt_bin_deposit")
     axes = []
     for g, d in ((beam.x, beam.dx), (beam.y, beam.dy), (beam.a, beam.da),
                  (beam.b, beam.db)):
         axes += [g.data_ptr(), g.shape[0], float(d)]
-    with cuda_lib.device_guard(Iv.device):
-        rc = getattr(lib, name)(
-            *(c.data_ptr() for c in coords), ok.data_ptr(), Iv.data_ptr(), B,
-            K, int(pairs), *axes, beam.dv.data_ptr(), float(scale),
-            int(method == 2 and beam.y0_nonneg), int(method == 2),
-            image_acc.data_ptr(), iang_acc.data_ptr(),
-            None if out is None else out.data_ptr(), stream)
-    cuda_lib.check(rc, name)
+    cuda_lib.launch(
+        lib, entry(Iv.dtype), Iv.device,
+        *(c.data_ptr() for c in coords), ok.data_ptr(), Iv.data_ptr(), B, K,
+        int(pairs), *axes, beam.dv.data_ptr(), float(scale),
+        int(method == 2 and beam.y0_nonneg), int(method == 2),
+        image_acc.data_ptr(), iang_acc.data_ptr(),
+        None if out is None else out.data_ptr(), stream)
     return out

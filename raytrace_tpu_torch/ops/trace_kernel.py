@@ -8,9 +8,9 @@ multi-segment trace and computes what
 see ``csrc/trace.cu`` for its design and precision placement.
 
 :func:`trace_batch` dispatches on the tensors' device: CPU tensors take the
-plain twin, CUDA tensors launch the kernel (or raise) on their own card.
-``launch_count`` counts kernel launches, ``device_launches`` them per
-device. With ``counts=True`` both also return each ray's
+plain twin, CUDA tensors launch the kernel (C entry :data:`ENTRY`, booked in
+``cuda_lib``'s launch ledger) or raise, on their own card. With
+``counts=True`` both also return each ray's
 number of propagate micro-steps (the counts variant the stream's reorder
 sorts by; the Pallas kernel's ``trace_tiles(counts=True)``).
 """
@@ -26,13 +26,10 @@ from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.stepper import N_SUB, TraceResult, \
     trace_batch_plain
 
-__all__ = ["trace_batch", "trace_batch_plain", "launch_count",
-           "device_launches"]
+__all__ = ["trace_batch", "trace_batch_plain", "ENTRY"]
 
-#: kernel launches since import (or since a caller last reset it)
-launch_count = 0
-#: the same launches per device
-device_launches: dict = {}
+#: the kernel's C entry
+ENTRY = "rt_trace"
 
 _GAIN_DTYPES = {"x": torch.float64, "y": torch.float64, "cdx": torch.float32,
                 "cdy": torch.float32, "n4": torch.float32,
@@ -84,13 +81,8 @@ def trace_batch(rays: dict, N: int, dz0: float, gain: DeviceGain,
         raise ValueError(f"trace_batch: unsupported device {dev}")
     B = _check_inputs(rays, gain, N)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    out = _launch(cuda_lib.load_library(), rays, B, N, dz0, gain, method, c,
-                  use_emis, stream, counts)
-    if B > 0:
-        global launch_count
-        launch_count += 1
-        cuda_lib.count_launch(device_launches, dev)
-    return out
+    return _launch(cuda_lib.load_library(), rays, B, N, dz0, gain, method, c,
+                   use_emis, stream, counts)
 
 
 #: the refill's two counters per (device, stream): zero between launches,
@@ -103,8 +95,8 @@ _own = None
 
 @contextlib.contextmanager
 def own_counters(pair: torch.Tensor):
-    """Launches inside use ``pair`` (two int64 zeros on their device) as
-    the refill's counters in place of their stream's. A captured CUDA
+    """Every launch inside uses ``pair`` (two int64 zeros on its device) as
+    the refill's counters in place of its stream's. A captured CUDA
     graph bakes in the pair it was captured with, so each graph keeps a
     pair of its own: two graphs that shared one and ran at once (two
     stream slots, two mesh entries of one card) would take each other's
@@ -131,7 +123,7 @@ def _counter(dev: torch.device, stream) -> torch.Tensor:
 
 def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
             counts=False, census=False):
-    """Allocate the outputs and launch ``rt_trace`` of ``lib`` on
+    """Allocate the outputs and launch :data:`ENTRY` of ``lib`` on
     ``stream`` (none for a batch of no rays); inputs already checked.
     Returns the TraceResult; with ``counts`` also the micro-step counts,
     and with ``census`` also each ray's number of cell entries (``(res,
@@ -150,23 +142,22 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
     cells = torch.empty(B, **i32) if census else None
     if B > 0:
         absy = gain.abs_y.to(torch.int32)
-        with cuda_lib.device_guard(dev):
-            rc = lib.rt_trace(
-                rays["x"].data_ptr(), rays["y"].data_ptr(),
-                rays["a"].data_ptr(), rays["b"].data_ptr(), B,
-                gain.x.data_ptr(), gain.y.data_ptr(), gain.cdx.data_ptr(),
-                gain.cdy.data_ptr(), gain.n4.data_ptr(), gain.g0.data_ptr(),
-                gain.E0.data_ptr(), gain.Gx.data_ptr(), gain.Gy.data_ptr(),
-                gain.range4.data_ptr(), absy.data_ptr(), gain.nx.data_ptr(),
-                gain.ny.data_ptr(), gain.x.shape[1], gain.y.shape[1], N,
-                float(dz0), float(c), int(method), int(bool(use_emis)),
-                gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(),
-                ex.data_ptr(), ey.data_ptr(), ea.data_ptr(), eb.data_ptr(),
-                esc.data_ptr(), perp.data_ptr(),
-                None if steps is None else steps.data_ptr(),
-                None if cells is None else cells.data_ptr(),
-                _counter(dev, stream).data_ptr(), stream)
-        cuda_lib.check(rc, "rt_trace")
+        cuda_lib.launch(
+            lib, ENTRY, dev,
+            rays["x"].data_ptr(), rays["y"].data_ptr(),
+            rays["a"].data_ptr(), rays["b"].data_ptr(), B,
+            gain.x.data_ptr(), gain.y.data_ptr(), gain.cdx.data_ptr(),
+            gain.cdy.data_ptr(), gain.n4.data_ptr(), gain.g0.data_ptr(),
+            gain.E0.data_ptr(), gain.Gx.data_ptr(), gain.Gy.data_ptr(),
+            gain.range4.data_ptr(), absy.data_ptr(), gain.nx.data_ptr(),
+            gain.ny.data_ptr(), gain.x.shape[1], gain.y.shape[1], N,
+            float(dz0), float(c), int(method), int(bool(use_emis)),
+            gvl.data_ptr(), evl.data_ptr(), ivl.data_ptr(),
+            ex.data_ptr(), ey.data_ptr(), ea.data_ptr(), eb.data_ptr(),
+            esc.data_ptr(), perp.data_ptr(),
+            None if steps is None else steps.data_ptr(),
+            None if cells is None else cells.data_ptr(),
+            _counter(dev, stream).data_ptr(), stream)
     res = TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=ex, exit_y=ey,
                       exit_a=ea, exit_b=eb, escaped=esc.view(torch.bool),
                       perp=perp.view(torch.bool))
@@ -185,8 +176,6 @@ def find_index_launch(lib, X: torch.Tensor, y: torch.Tensor,
                          "least 2 points")
     X, y = X.contiguous(), y.to(torch.float64).contiguous()
     out = torch.empty(y.shape, dtype=torch.int32, device=y.device)
-    with cuda_lib.device_guard(y.device):
-        rc = lib.rt_find_index(X.data_ptr(), X.shape[0], y.data_ptr(),
-                               y.numel(), out.data_ptr(), stream)
-    cuda_lib.check(rc, "rt_find_index")
+    cuda_lib.launch(lib, "rt_find_index", y.device, X.data_ptr(), X.shape[0],
+                    y.data_ptr(), y.numel(), out.data_ptr(), stream)
     return out

@@ -20,8 +20,9 @@ mesh with one ``psum`` at the end of the call. Here:
   G``) runs over every ``it`` with ``it % G == g``, and ``N_start + it *
   N_parallel = N_start' + (it // G) * N_parallel'``. The shard's own
   stride index ``it' = it // G`` therefore names the physical ray through
-  ``failed_rays``' own ``gidx = N_start' + it' * N_parallel'``. A shard
-  with no rays (more shards than rays) yields zeros.
+  the shard problem's own ``N_start' + it' * N_parallel'``, as the failure
+  path (``ray_tracer._finish``) reads it. A shard with no rays (more
+  shards than rays) yields zeros.
 * **Each CUDA entry** runs under ``torch.cuda.device(dev)`` on a compute
   stream of its own, so two entries on one card overlap, and on several
   cards each runs on its own device. The host packs the tables once; each
@@ -65,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -137,10 +139,11 @@ def prepare_sharded(problem: CreateImageProblem, mesh,
         cfgs = tuple(e.cfg for e in entries)
         cfg = {k: cfgs[0][k] for k in ("N", "K", "method", "use_emis",
                                        "spectrum_dtype", "dims")}
+        launches = Counter()
+        for e in cfgs:
+            launches.update(e["launches"])
         cfg.update(reorder=any(e["reorder"] for e in cfgs),
-                   launches={n: sum(e["launches"][n] for e in cfgs)
-                             for n in cfgs[0]["launches"]},
-                   entries=cfgs)
+                   launches=dict(launches), entries=cfgs)
         return PreparedShardedCall(
             problem=problem, method=method, mesh=mesh, shards=shards,
             pipeline=tuple(e.pipeline for e in entries),
@@ -334,10 +337,10 @@ def _finalize_sharded(call: _ShardedCall, failed_ray_path: str
                       ) -> tuple[np.ndarray, np.ndarray]:
     """Wait for the reduced readback (the ``wait`` span), then in the
     ``finalize`` span the reduction's device seconds (``mesh.reduce``, on
-    CUDA, from the call's own marks), the sum over the ranks, the failure
-    path and the layout contract, as ``ray_tracer._finalize_call``; the
-    entries' graphs may run again after."""
-    problem = call.prep.problem
+    CUDA, from the call's own marks), the sum over the ranks and
+    :func:`ray_tracer._finish` of the sum over this rank's shards (each
+    rank dumps its own failed rays); the entries' graphs may run again
+    after."""
     try:
         with profiler.span("wait"):
             if call.done is not None:
@@ -350,32 +353,10 @@ def _finalize_sharded(call: _ShardedCall, failed_ray_path: str
             host = call.out.numpy()
             if not call.ranks_summed:
                 (host,) = collectives.host_sum_arrays([host])
-            bits = ray_tracer.fail_bits(host[-ray_tracer.N_FLAGS:])
-            if bits:
-                # this rank's failed rays over its shards, in the single
-                # call's (ascending) order
-                gidx = np.sort(np.concatenate(
-                    [ray_tracer.failed_rays(sp, c.codes)
-                     for (_dev, sp), c in zip(call.prep.shards,
-                                              call.calls)]))
-                ray_tracer.raise_failure(problem,
-                                         ray_tracer._source_beam(problem),
-                                         call.prep.cfg["method"], gidx, bits,
-                                         failed_ray_path)
-            n_image = call.calls[0].n_image
-            image = host[:n_image].copy()
-            i_ang = host[n_image:-ray_tracer.N_FLAGS].copy()
-            problem.image, problem.I_ang = image, i_ang
+            return ray_tracer._finish(
+                call.prep.problem, host,
+                [(sp, c.codes) for (_dev, sp), c in zip(call.prep.shards,
+                                                        call.calls)],
+                call.prep.cfg["method"], failed_ray_path)
     finally:
-        for c in call.calls:
-            ray_tracer._release(c)
-    return image, i_ang
-
-
-def _discard_sharded(call: _ShardedCall) -> None:
-    """Drop a dispatched sharded call without reading it: wait for it,
-    release the entries' graphs."""
-    if call.done is not None:
-        call.done.synchronize()
-    for c in call.calls:
-        ray_tracer._release(c)
+        ray_tracer._release(*call.calls)

@@ -32,8 +32,8 @@ in the checkout), or the snapshot that ``--ase`` / ``--seed`` names.
 
 Each synchronous row records its rays, the best, median, average and
 standard deviation of s/call, the reference's stability booleans (recorded,
-not gates), every call's stage split, the launches per call of B1, B2 and
-B3 (their wrappers' ``launch_count``; a graph replay adds the launches it
+not gates), every call's stage split, the launches per call of each C
+entry (``cuda_lib``'s launch ledger; a graph replay books the launches it
 captured), and ``mem_after_<row>``: the peak of allocated bytes since the
 row began (``max_memory_allocated`` after ``reset_peak_memory_stats``; the
 warmup call's eager run and capture allocate what the call needs, which a
@@ -150,7 +150,7 @@ from raytrace_tpu_torch.io.loader import load_input
 from raytrace_tpu_torch.models import ray_tracer
 from raytrace_tpu_torch.models.ray_tracer import (DEFAULT_CHUNK, create_image,
                                                   create_image_stream)
-from raytrace_tpu_torch.ops import amplify_kernel, deposit_kernel, trace_kernel
+from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.parallel import sharding
 from raytrace_tpu_torch.parallel.mesh import make_mesh
 from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE, fresh_problem,
@@ -188,10 +188,6 @@ _STREAMS = {"ase_stream": ("ase_small", 6, 4),
             "scale16_stream": ("scale16", 4, 2)}
 _ORDER = ("ase_small", "ase_stream", "seed_small", "seed_stream", "scale16",
           "scale16_stream", "seed_scale4", "scale64")
-
-#: the kernels' wrappers, whose launch counts each row reads
-_WRAPPERS = {"trace": trace_kernel, "bin_deposit": deposit_kernel,
-             "amplify": amplify_kernel}
 
 #: the rows that get a ``_mesh<N>`` row under ``--mesh``
 MESH_ROWS = ("ase_small", "seed_small", "scale64", "seed_scale4")
@@ -284,16 +280,19 @@ def _reset_peak(dev) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
 
 
-def _launch_counts() -> dict:
-    return {n: w.launch_count for n, w in _WRAPPERS.items()}
+def _per_call(before, n: int) -> dict:
+    """Each C entry's launches per call over ``n`` calls since the launch
+    ledger's snapshot ``before``."""
+    made = cuda_lib.per_entry(cuda_lib.since(before))
+    return {k: v / n for k, v in made.items()}
 
 
-def _card_launches() -> dict:
-    return {n: dict(w.device_launches) for n, w in _WRAPPERS.items()}
-
-
-def _per_call(before: dict, n: int) -> dict:
-    return {k: (v - before[k]) / n for k, v in _launch_counts().items()}
+def _per_card(before, n: int) -> dict:
+    """:func:`_per_call` per card: ``{entry: {device: launches}}``."""
+    out: dict = {}
+    for (k, d), v in cuda_lib.since(before).items():
+        out.setdefault(k, {})[str(d)] = v / n
+    return out
 
 
 def _timed_call(ctx: _Ctx, p) -> dict:
@@ -374,7 +373,7 @@ def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
     warmup_s = time.perf_counter() - t0
     got = (pristine.image, pristine.I_ang)
     probs = perturbed_problems(source, n, salt=salt, scale=scale)
-    before = _launch_counts()
+    before = cuda_lib.launches()
     calls = [_timed_call(ctx, p) for p in probs]
     mem = _memory(ctx.dev)
     row = _row_stats(prefix, [c["total_s"] for c in calls],
@@ -465,7 +464,7 @@ def _stream_row(ctx: _Ctx, name: str, source, scale, n_units: int,
             outs.append(out)
             yield out
 
-    before = _launch_counts()
+    before = cuda_lib.launches()
     per_call, detail = time_stream_detailed(source, n_units, rounds,
                                             make_stream, scale=scale)
     launches = _per_call(before, n_units * rounds)
@@ -543,9 +542,9 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
     warmup_s = time.perf_counter() - t0
     rel = max(_rel(got[0], single[0]), _rel(got[1], single[1]))
     probs = perturbed_problems(source, n, salt=salt, scale=scale)
-    before, before_cards = _launch_counts(), _card_launches()
+    before = cuda_lib.launches()
     calls = [_mesh_call(ctx, runner, p) for p in probs]
-    after_cards = _card_launches()
+    per_card = _per_card(before, n)
     mems = {d: _memory(d) for d in cards}
     held = {str(d): _graph_memory(ctx, d, m) for d, m in mems.items()}
     row = _row_stats(prefix, [c["total_s"] for c in calls],
@@ -557,11 +556,7 @@ def _mesh_row(ctx: _Ctx, name: str, mesh, source, scale, n: int,
         f"{prefix}speedup": None if single_best is None
         else single_best / best,
         f"{prefix}launches_per_call": _per_call(before, n),
-        f"{prefix}launches_per_card": {
-            k: {str(d): (v - before_cards[k].get(d, 0)) / n
-                for d, v in after_cards[k].items()
-                if v != before_cards[k].get(d, 0)}
-            for k in after_cards},
+        f"{prefix}launches_per_card": per_card,
         f"{prefix}rel_vs_single": rel,
         f"{prefix}single_check": rel <= MESH_REL,
         f"mem_after_{name}_mesh{len(mesh)}": (

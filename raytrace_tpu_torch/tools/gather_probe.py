@@ -17,9 +17,9 @@ with CUDA events and differenced, so the launch cost cancels; the best of
 dependent step, and the card's name. Needs a CUDA device.
 
 :func:`gather_probe` dispatches on the device: CPU tensors take the plain
-twin :func:`gather_probe_plain`, CUDA tensors launch the kernel (or raise)
-on their own card. ``launch_count`` counts kernel launches,
-``device_launches`` them per device.
+twin :func:`gather_probe_plain`, CUDA tensors launch the kernel (C entry
+``rt_gather_probe``, booked in ``cuda_lib``'s launch ledger) or raise, on
+their own card.
 """
 
 from __future__ import annotations
@@ -33,16 +33,11 @@ import torch
 from raytrace_tpu_torch.ops import cuda_lib
 
 __all__ = ["gather_probe", "gather_probe_plain", "probe_inputs", "measure",
-           "launch_count", "device_launches", "main"]
+           "main"]
 
 ROW = 128
 #: differenced step counts (tools/vpu_probe.py:39)
 K1, K2 = 100_000, 1_000_000
-
-#: kernel launches since import (or since a caller last reset it)
-launch_count = 0
-#: the same launches per device
-device_launches: dict = {}
 
 
 def probe_inputs(rows: int = 8, seed: int = 1):
@@ -87,22 +82,16 @@ def gather_probe(tab: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
     if tab.device.type != "cuda":
         raise ValueError(f"gather_probe: unsupported device {tab.device}")
     stream = torch.cuda.current_stream(tab.device).cuda_stream
-    out = _launch(cuda_lib.load_library(), tab, idx, K, stream)
-    global launch_count
-    launch_count += 1
-    cuda_lib.count_launch(device_launches, tab.device)
-    return out
+    return _launch(cuda_lib.load_library(), tab, idx, K, stream)
 
 
 def _launch(lib, tab, idx, K, stream) -> torch.Tensor:
     """Launch ``rt_gather_probe`` of ``lib`` on ``stream``; inputs already
     checked."""
     out = torch.empty_like(tab)
-    with cuda_lib.device_guard(tab.device):
-        rc = lib.rt_gather_probe(tab.data_ptr(), idx.data_ptr(),
-                                 out.data_ptr(), tab.numel(), int(K), 1,
-                                 stream)
-    cuda_lib.check(rc, "rt_gather_probe")
+    cuda_lib.launch(lib, "rt_gather_probe", tab.device, tab.data_ptr(),
+                    idx.data_ptr(), out.data_ptr(), tab.numel(), int(K), 1,
+                    stream)
     return out
 
 

@@ -80,7 +80,7 @@ def _outputs() -> dict:
         C = beam.x.shape[0] * beam.y.shape[0]
         A = beam.a.shape[0] * beam.b.shape[0]
         spectra = [("deposit", Iv, flags)]
-        if hasattr(amplify_kernel, "F32"):
+        if "rt_amplify_seeded_f32" in cuda_lib._SIGNATURES:
             f32 = torch.float32
             if method == 2:
                 args = (f, fv, res.escaped, res.ivl, res.gvl, gv)

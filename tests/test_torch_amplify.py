@@ -39,7 +39,8 @@ from raytrace_tpu_torch.convert import problem_from_jax
 from raytrace_tpu_torch.models.problem import (seed_arrays, seed_from_tensors,
                                                seed_scalars)
 from raytrace_tpu_torch.models.problem import prepare_gain
-from raytrace_tpu_torch.ops import amplify_kernel, seed as seed_ops, spectrum
+from raytrace_tpu_torch.ops import (amplify_kernel, cuda_lib, seed as seed_ops,
+                                    spectrum)
 from raytrace_tpu_torch.ops.stepper import TraceResult, trace_batch_plain
 from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
                                         source_rays, synthetic_problem)
@@ -139,13 +140,13 @@ def test_no_segments_returns_iv0():
 
 def test_spectrum_gain_only_goes_through_the_wrapper():
     """The seeded call's gain-only amplify is B3's wrapper
-    (``ray_tracer._dispatch``); on CPU tensors the wrapper is the twin and
-    launches nothing."""
+    (``ray_tracer._dispatch_steps``); on CPU tensors the wrapper is the twin
+    and launches nothing."""
     f, fv, esc, ivl, gvl, gv = (torch.from_numpy(a)
                                 for a in _seeded(256, seed=7))
-    before = amplify_kernel.launch_count
+    before = cuda_lib.launches()
     got, flags = amplify_kernel.amplify_gain(f, fv, esc, ivl, gvl, gv)
-    assert amplify_kernel.launch_count == before
+    assert not cuda_lib.since(before)
     want, want_flags = amplify_kernel.amplify_gain_plain(f, fv, esc, ivl,
                                                          gvl, gv)
     assert torch.equal(got, want) and torch.equal(flags, want_flags)
@@ -203,10 +204,9 @@ def test_emis_twin_is_spectrum_amplify_and_flags(inputs):
     assert got.dtype == torch.float64 and got.shape == (B, K)
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert torch.equal(flags, want_flags)
-    before = (amplify_kernel.EMIS.launch_count, amplify_kernel.launch_count)
+    before = cuda_lib.launches()
     wrapped = amplify_kernel.amplify_emis(res.ivl, res.gvl, res.evl, gv)
-    assert (amplify_kernel.EMIS.launch_count,
-            amplify_kernel.launch_count) == before
+    assert not cuda_lib.since(before)
     assert torch.equal(wrapped[0].view(torch.int64), got.view(torch.int64))
     assert torch.equal(wrapped[1], flags)
     if inputs == "emis_inputs":

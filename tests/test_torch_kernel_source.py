@@ -666,15 +666,13 @@ def test_amplify_emis_f32_source_in_the_call(host_lib, monkeypatch,
 
 def test_amplify_emis_f32_source_wrapper_on_cpu_is_the_twin():
     """On CPU tensors ``amplify_emis(..., dtype=float32)`` is the twin and
-    counts no launch of either kernel."""
+    books no launch."""
     args = _emis_case("shipped")
-    before = (amplify_kernel.EMIS.launch_count,
-              amplify_kernel.EMIS_F32.launch_count)
+    before = cuda_lib.launches()
     got, flags = amplify_kernel.amplify_emis(*args, dtype=torch.float32)
     want, want_flags = amplify_kernel.amplify_emis_plain(
         *args, dtype=torch.float32)
-    assert (amplify_kernel.EMIS.launch_count,
-            amplify_kernel.EMIS_F32.launch_count) == before
+    assert not cuda_lib.since(before)
     assert same_bits(got, want) and torch.equal(flags, want_flags)
 
 
@@ -795,3 +793,15 @@ def test_gather_probe_source_equals_twin(host_lib):
     tab, idx = gather_probe.probe_inputs(rows=8, seed=1)
     got = gather_probe._launch(host_lib, tab, idx, 37, None)
     assert torch.equal(got, gather_probe.gather_probe_plain(tab, idx, 37))
+
+
+def test_launch_is_booked_under_its_entry_and_device(host_lib):
+    """One launch through the host-compiled library is booked once in
+    ``cuda_lib``'s launch ledger, under its C entry and device."""
+    from raytrace_tpu_torch.tools import gather_probe
+
+    tab, idx = gather_probe.probe_inputs(rows=1, seed=2)
+    before = cuda_lib.launches()
+    gather_probe._launch(host_lib, tab, idx, 3, None)
+    assert cuda_lib.since(before) == {
+        ("rt_gather_probe", torch.device("cpu")): 1}

@@ -20,6 +20,17 @@ from raytrace_tpu_torch.testing import (amplify_inputs, emis_inputs,
 pytestmark = pytest.mark.gpu
 
 
+def _booked(before) -> dict:
+    """The launches booked in the ledger since ``before``, per C entry."""
+    return cuda_lib.per_entry(cuda_lib.since(before))
+
+
+def _on(before, dev) -> dict:
+    """The launches booked since ``before`` on ``dev``, per C entry."""
+    dev = torch.device(dev)
+    return {k: n for (k, d), n in cuda_lib.since(before).items() if d == dev}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -44,10 +55,10 @@ def test_trace_kernel_vs_twin(cuda, method, kwargs):
     rays = _rays(p, 4096, 0, cuda)
     gain = prepare_gain(p.gain, cuda)
     args = (rays, p.N, p.euv_beam.dz, gain, method, 0.5, method == 1)
-    before = trace_kernel.launch_count
+    before = cuda_lib.launches()
     got = trace_kernel.trace_batch(*args)
     torch.cuda.synchronize()
-    assert trace_kernel.launch_count == before + 1
+    assert _booked(before) == {"rt_trace": 1}
     want = trace_kernel.trace_batch_plain(*args)
     assert torch.equal(got.ivl, want.ivl)
     assert torch.equal(got.escaped, want.escaped)
@@ -66,10 +77,10 @@ def test_trace_kernel_one_segment(cuda, method):
     rays = _rays(p, 1000, 4, cuda)
     gain = prepare_gain(p.gain, cuda)
     args = (rays, p.N, p.euv_beam.dz, gain, method, 0.5, method == 1)
-    before = trace_kernel.launch_count
+    before = cuda_lib.launches()
     got, steps = trace_kernel.trace_batch(*args, counts=True)
     torch.cuda.synchronize()
-    assert trace_kernel.launch_count == before + 1
+    assert _booked(before) == {"rt_trace": 1}
     want, _ = trace_kernel.trace_batch_plain(*args, counts=True)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -78,7 +89,7 @@ def test_trace_kernel_one_segment(cuda, method):
 
 def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
     """B1, B2 and B3 on a batch of no rays: empty results on the card (B2
-    leaves its accumulators as they were), no launch counted, and no plain
+    leaves its accumulators as they were), no launch booked, and no plain
     twin called."""
     def refuse(*args, **kwargs):
         raise AssertionError("a plain twin ran on CUDA tensors")
@@ -93,8 +104,7 @@ def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
                       (deposit_kernel, "bin_indices")):
         monkeypatch.setattr(mod, name, refuse)
     f, fv, esc, ivl, gvl, gv = _seeded_inputs(8, None, cuda)
-    before = (amplify_kernel.launch_count, trace_kernel.launch_count,
-              deposit_kernel.launch_count, amplify_kernel.EMIS.launch_count)
+    before = cuda_lib.launches()
     Iv, flags = amplify_kernel.amplify_gain(f[:0], fv, esc[:0], ivl[:0],
                                             gvl[:0], gv)
     assert Iv.shape == (0, 82) and Iv.dtype == torch.float64
@@ -114,9 +124,7 @@ def test_empty_batches_run_no_plain_code(cuda, monkeypatch):
     image.fill_(1.0)
     deposit_kernel.bin_deposit(Iv, coords, ok, beam, 1, 1.0, image, i_ang)
     assert torch.equal(image, torch.ones_like(image))
-    assert (amplify_kernel.launch_count, trace_kernel.launch_count,
-            deposit_kernel.launch_count,
-            amplify_kernel.EMIS.launch_count) == before
+    assert not cuda_lib.since(before)
 
 
 def _deposit_args(shape, method, B, device, seed=1):
@@ -149,11 +157,11 @@ def test_deposit_kernel_vs_twin(cuda, method, shape):
 
     Iv, coords, ok, beam, image, i_ang = _deposit_args(shape, method,
                                                        100_000, cuda)
-    before = deposit_kernel.launch_count
+    before = cuda_lib.launches()
     deposit_kernel.bin_deposit(Iv, coords, ok, beam, method, 0.37, image,
                                i_ang)
     torch.cuda.synchronize()
-    assert deposit_kernel.launch_count == before + 1
+    assert _booked(before) == {"rt_bin_deposit": 1}
     want = (torch.zeros_like(image), torch.zeros_like(i_ang))
     deposit_kernel.bin_deposit_plain(Iv, coords, ok, beam, method, 0.37,
                                      *want)
@@ -217,10 +225,10 @@ def test_amplify_kernel_vs_twin(cuda, spread, K):
     bitwise, the spectrum within 1e-13 (CUDA's exp against PyTorch's), the
     flags identical."""
     args = _seeded_inputs(65536, spread, cuda, K)
-    before = amplify_kernel.launch_count
+    before = cuda_lib.launches()
     got, flags = amplify_kernel.amplify_gain(*args)
     torch.cuda.synchronize()
-    assert amplify_kernel.launch_count == before + 1
+    assert _booked(before) == {"rt_amplify_seeded": 1}
     _, _, gl = amplify_kernel._launch(
         cuda_lib.load_library(), *args,
         torch.cuda.current_stream().cuda_stream, log_gain=True)
@@ -271,10 +279,10 @@ def test_amplify_emis_kernel_vs_twin(cuda, shape):
         cases = [tuple(torch.as_tensor(a, device=cuda) for a in emis_inputs(
             B=1 << 20, K=K, seed=K)) for K in (52, 7)]
     for args in cases:
-        before = amplify_kernel.EMIS.launch_count
+        before = cuda_lib.launches()
         got, flags = amplify_kernel.amplify_emis(*args)
         torch.cuda.synchronize()
-        assert amplify_kernel.EMIS.launch_count == before + 1
+        assert _booked(before) == {"rt_amplify_emis": 1}
         want, want_flags = amplify_kernel.amplify_emis_plain(*args)
         assert _emis_rel(got, want) <= 1e-15
         assert torch.equal(flags, want_flags) and not flags.any()
@@ -299,7 +307,7 @@ def test_create_image_ase_fixture_goes_through_b4(cuda):
     """The ASE fixture through its call's CUDA graph: ``check_ans``
     against the golden at 5e-6, B4 booked once a chunk in the config (the
     capture raises unless the call launched exactly that), and each replay
-    adds those launches to B4's count, none to B3's."""
+    books exactly those launches: B1, B4 and B2, none of B3."""
     import os
 
     from raytrace_tpu_torch import check_ans, create_image, load_input
@@ -310,15 +318,14 @@ def test_create_image_ase_fixture_goes_through_b4(cuda):
     p, image0, i_ang0 = load_input(path)
     prep = ray_tracer.prepare_pipeline(p, "cuda", device=cuda)
     n = prep.cfg["n_chunks"]
-    assert prep.cfg["launches"]["amplify_emis"] == n > 0
-    assert prep.cfg["launches"]["amplify"] == 0
+    assert n > 0 and prep.cfg["launches"] == dict(
+        rt_trace=n, rt_amplify_emis=n, rt_bin_deposit=n)
+    create_image(p, "cuda", device=cuda)  # the warm-up and the capture
     for _ in range(2):
-        before = (amplify_kernel.EMIS.launch_count,
-                  amplify_kernel.launch_count)
+        before = cuda_lib.launches()
         image, i_ang = create_image(p, "cuda", device=cuda)
         assert check_ans(image0, i_ang0, image, i_ang)
-        assert (amplify_kernel.EMIS.launch_count - before[0],
-                amplify_kernel.launch_count - before[1]) == (n, 0)
+        assert _booked(before) == prep.cfg["launches"]
     assert len(prep.pipeline.graphs) == 1
 
 
@@ -332,12 +339,10 @@ def test_sharded_ase_on_the_cards_matches_single(cuda):
 
     mesh = make_mesh()
     want = create_image(synthetic_problem(**ASE_SHAPE), "cuda", device=cuda)
-    before = dict(amplify_kernel.EMIS.device_launches)
+    before = cuda_lib.launches()
     got = create_image_sharded(synthetic_problem(**ASE_SHAPE), mesh, "cuda")
     for dev in mesh:
-        dev = torch.device(dev)
-        assert (amplify_kernel.EMIS.device_launches.get(dev, 0)
-                > before.get(dev, 0))
+        assert _on(before, dev).get("rt_amplify_emis", 0) > 0
     _close(got, want)
 
 
@@ -364,13 +369,10 @@ def test_amplify_emis_f32_kernel_vs_twin(cuda, shape):
             B=B, nseg=nseg, nsub=nsub, K=K, seed=K))
             for B, nseg, nsub, K in ((4099, 2, 3, 600), (1031, 3, 2, 301))]
     for args in cases:
-        before = (amplify_kernel.EMIS_F32.launch_count,
-                  amplify_kernel.EMIS.launch_count)
+        before = cuda_lib.launches()
         got, flags = amplify_kernel.amplify_emis(*args, dtype=torch.float32)
         torch.cuda.synchronize()
-        assert (amplify_kernel.EMIS_F32.launch_count,
-                amplify_kernel.EMIS.launch_count) == (before[0] + 1,
-                                                      before[1])
+        assert _booked(before) == {"rt_amplify_emis_f32": 1}
         want, want_flags = amplify_kernel.amplify_emis_plain(
             *args, dtype=torch.float32)
         assert same_bits(got, want)
@@ -416,20 +418,15 @@ def test_create_image_ase_f32_goes_through_b4_f32(cuda):
     prep = ray_tracer.prepare_pipeline(p, "cuda", spectrum_dtype=f32,
                                        device=cuda)
     n = prep.cfg["n_chunks"]
-    assert prep.cfg["launches"]["amplify_emis_f32"] == n > 0
-    assert prep.cfg["launches"]["amplify_emis"] == 0
-    assert prep.cfg["launches"]["amplify"] == 0
+    assert n > 0 and prep.cfg["launches"] == dict(
+        rt_trace=n, rt_amplify_emis_f32=n, rt_bin_deposit_f32=n)
     create_image(p, "cuda", spectrum_dtype=f32, device=cuda)
     for _ in range(2):
-        before = (amplify_kernel.EMIS_F32.launch_count,
-                  amplify_kernel.EMIS.launch_count,
-                  amplify_kernel.launch_count)
+        before = cuda_lib.launches()
         image, i_ang = create_image(p, "cuda", spectrum_dtype=f32,
                                     device=cuda)
         assert check_ans(image0, i_ang0, image, i_ang)
-        assert (amplify_kernel.EMIS_F32.launch_count - before[0],
-                amplify_kernel.EMIS.launch_count - before[1],
-                amplify_kernel.launch_count - before[2]) == (n, 0, 0)
+        assert _booked(before) == prep.cfg["launches"]
     assert len(prep.pipeline.graphs) == 1
     twin = create_image(p, "cpu", spectrum_dtype=f32, device=cuda)
     for a, b in ((image, twin[0]), (i_ang, twin[1])):
@@ -439,14 +436,13 @@ def test_create_image_ase_f32_goes_through_b4_f32(cuda):
 @pytest.mark.parametrize("spread,K", [(None, 82), (40, 82), (None, 7)])
 def test_amplify_f32_kernel_vs_twin(cuda, spread, K):
     """B3's f32 instantiation on the card: the pair, the spectrum and the
-    flags bitwise equal to the twin's on the card; counted under both
-    ``launch_count`` and ``F32``."""
+    flags bitwise equal to the twin's on the card; booked under its own C
+    entry."""
     args = _seeded_inputs(65536, spread, cuda, K)
-    before = (amplify_kernel.launch_count, amplify_kernel.F32.launch_count)
+    before = cuda_lib.launches()
     got, flags = amplify_kernel.amplify_gain(*args, dtype=torch.float32)
     torch.cuda.synchronize()
-    assert (amplify_kernel.launch_count, amplify_kernel.F32.launch_count) \
-        == (before[0] + 1, before[1] + 1)
+    assert _booked(before) == {"rt_amplify_seeded_f32": 1}
     _, _, pair = amplify_kernel._launch(
         cuda_lib.load_library(), *args,
         torch.cuda.current_stream().cuda_stream, log_gain=True,
@@ -461,7 +457,7 @@ def test_amplify_f32_kernel_vs_twin(cuda, spread, K):
 @pytest.mark.parametrize("method", [1, 2])
 def test_deposit_f32_kernel_vs_twin(cuda, method):
     """B2's f32 instantiation on the card: image and I_ang within 1e-12 of
-    the twin's, counted under ``F32``."""
+    the twin's, booked under its own C entry."""
     from raytrace_tpu_torch.models.problem import prepare_beam
     from raytrace_tpu_torch.testing import deposit_inputs
 
@@ -475,11 +471,11 @@ def test_deposit_f32_kernel_vs_twin(cuda, method):
     f64 = dict(dtype=torch.float64, device=cuda)
     got = (torch.zeros((C, 82), **f64), torch.zeros((A, 1), **f64))
     want = (torch.zeros((C, 82), **f64), torch.zeros((A, 1), **f64))
-    before = deposit_kernel.F32.launch_count
+    before = cuda_lib.launches()
     deposit_kernel.bin_deposit(*args, *got)
     deposit_kernel.bin_deposit_plain(*args, *want)
     torch.cuda.synchronize()
-    assert deposit_kernel.F32.launch_count == before + 1
+    assert _booked(before) == {"rt_bin_deposit_f32": 1}
     for g, w in zip(got, want):
         assert not g.isnan().any()
         assert ((g - w).abs().max() / w.abs().max()).item() < 1e-12
@@ -532,11 +528,12 @@ def test_create_image_f32_on_card(cuda, seeded):
         return create_image(synthetic_problem(seeded=seeded), method,
                             spectrum_dtype=torch.float32, device=cuda)
 
-    before = (amplify_kernel.F32.launch_count,
-              deposit_kernel.F32.launch_count)
+    before = cuda_lib.launches()
     img, ang = call("cuda")
-    assert deposit_kernel.F32.launch_count > before[1]
-    assert (amplify_kernel.F32.launch_count > before[0]) == seeded
+    made = _booked(before)
+    assert made.get("rt_bin_deposit_f32", 0) > 0
+    assert (made.get("rt_amplify_seeded_f32", 0) > 0) == seeded
+    assert not {"rt_bin_deposit", "rt_amplify_seeded"} & set(made)
     img_t, ang_t = call("cpu")
     img64, ang64 = create_image(synthetic_problem(seeded=seeded), "cuda",
                                 device=cuda)
@@ -601,15 +598,13 @@ def test_sharded_on_card_matches_single(cuda, seeded):
 
     want = create_image(synthetic_problem(seeded=seeded), "cuda",
                         device=cuda)
-    before = (trace_kernel.launch_count, deposit_kernel.launch_count,
-              amplify_kernel.launch_count, amplify_kernel.EMIS.launch_count)
+    before = cuda_lib.launches()
     got = create_image_sharded(synthetic_problem(seeded=seeded),
                                ("cuda:0", "cuda:0"), "cuda")
-    after = (trace_kernel.launch_count, deposit_kernel.launch_count,
-             amplify_kernel.launch_count, amplify_kernel.EMIS.launch_count)
-    assert after[0] >= before[0] + 2 and after[1] >= before[1] + 2
-    assert (after[2] > before[2]) == seeded
-    assert (after[3] >= before[3] + 2) == (not seeded)
+    made = _booked(before)
+    assert made["rt_trace"] >= 2 and made["rt_bin_deposit"] >= 2
+    assert ("rt_amplify_seeded" in made) == seeded
+    assert (made.get("rt_amplify_emis", 0) >= 2) == (not seeded)
     for g, w in zip(got, want):
         assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
 
@@ -676,17 +671,15 @@ def test_single_call_on_cuda1_with_cuda0_current(two_cards, seeded):
         assert torch.equal(getattr(res[0], f).cpu(), getattr(res[1], f).cpu())
     want = create_image(synthetic_problem(seeded=seeded), "cuda",
                         device="cuda:0")
-    before = {w: dict(w.device_launches)
-              for w in (trace_kernel, deposit_kernel, amplify_kernel)}
+    before = cuda_lib.launches()
     got = create_image(synthetic_problem(seeded=seeded), "cuda",
                        device="cuda:1")
     assert torch.cuda.current_device() == 0
-    for w in (trace_kernel, deposit_kernel) + (
-            (amplify_kernel,) if seeded else ()):
-        assert (w.device_launches.get(two_cards[1], 0)
-                > before[w].get(two_cards[1], 0))
-        assert (w.device_launches.get(two_cards[0], 0)
-                == before[w].get(two_cards[0], 0))
+    made = _on(before, two_cards[1])
+    for k in ("rt_trace", "rt_bin_deposit") + (
+            ("rt_amplify_seeded",) if seeded else ()):
+        assert made.get(k, 0) > 0
+    assert not _on(before, two_cards[0])
     for g, w in zip(got, want):
         assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
 
@@ -702,14 +695,15 @@ def test_sharded_on_every_card_matches_single(two_cards, seeded):
 
     want = create_image(synthetic_problem(seeded=seeded), "cuda",
                         device="cuda:0")
-    kernels = (trace_kernel, deposit_kernel) + (
-        (amplify_kernel,) if seeded else ())
-    before = {w: dict(w.device_launches) for w in kernels}
+    kernels = ("rt_trace", "rt_bin_deposit") + (
+        ("rt_amplify_seeded",) if seeded else ())
+    before = cuda_lib.launches()
     got = create_image_sharded(synthetic_problem(seeded=seeded), make_mesh(),
                                "cuda")
-    for w in kernels:
-        for dev in two_cards:
-            assert w.device_launches.get(dev, 0) > before[w].get(dev, 0)
+    for dev in two_cards:
+        made = _on(before, dev)
+        for k in kernels:
+            assert made.get(k, 0) > 0
     for g, w in zip(got, want):
         assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
 
@@ -733,7 +727,8 @@ def _close(got, want):
 def test_graph_replay_matches_eager(cuda, seeded):
     """create_image replays one captured graph over units of one shape with
     different tables: each within 1e-12 of its eager call, each replay
-    adding the captured launches to the wrappers' counts."""
+    booking the captured launches in the ledger (a call that captures the
+    graph its eager warm-up's too)."""
     import functools
 
     from raytrace_tpu_torch import create_image
@@ -744,12 +739,14 @@ def test_graph_replay_matches_eager(cuda, seeded):
     units = perturbed_problems(source, 3, salt=7)
     prep = ray_tracer.prepare_pipeline(units[0], "cuda", device=cuda)
     assert isinstance(prep.pipeline, ray_tracer._GraphPipeline)
+    assert prep.cfg["launches"]["rt_trace"] > 0
     for u, w in zip(units, [_eager(u, cuda) for u in
                             perturbed_problems(source, 3, salt=7)]):
-        before = trace_kernel.launch_count
+        graphs, before = len(prep.pipeline.graphs), cuda_lib.launches()
         _close(create_image(u, "cuda", device=cuda), w)
-        assert (trace_kernel.launch_count - before
-                >= prep.cfg["launches"]["trace"] > 0)
+        calls = 1 + len(prep.pipeline.graphs) - graphs
+        assert _booked(before) == {k: n * calls
+                                   for k, n in prep.cfg["launches"].items()}
     graphs = ray_tracer.prepare_pipeline(units[0], "cuda",
                                          device=cuda).pipeline.graphs
     assert len(graphs) == 1 and graphs[0].nodes["kernel"] > 0
@@ -835,27 +832,26 @@ def test_lax_runs_the_twins_on_the_card(cuda, seeded):
     from raytrace_tpu_torch.models import ray_tracer
 
     card = torch.device("cuda", torch.cuda.current_device())
-    wrappers = (trace_kernel, deposit_kernel, amplify_kernel)
     p = synthetic_problem(seeded=seeded)
     want = create_image(p, "cuda")
     for name in ("lax", "lax-exact", "openacc"):
         assert ray_tracer._route(name) == ("cpu", torch.device("cuda"))
         assert ray_tracer.resolve_method(p, name) == "cpu"
-        before = [w.launch_count for w in wrappers]
+        before = cuda_lib.launches()
         got = create_image(p, name)
-        assert [w.launch_count for w in wrappers] == before
+        assert not cuda_lib.since(before)
         pipe = next(reversed(ray_tracer._PIPELINE_CACHE.values()))
         assert isinstance(pipe, ray_tracer._EagerPipeline)
         assert pipe.cfg["device"] == card and not pipe.cfg["graph"]
         for g, w in zip(got, want):
             assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
-    before = [w.launch_count for w in wrappers]
+    before = cuda_lib.launches()
     yields = list(create_image_stream([p, p, p], "lax", depth=2))
     assert len(yields) == 3
     for got in yields:
         for g, w in zip(got, want):
             assert np.linalg.norm(g - w) <= 1e-12 * np.linalg.norm(w)
-    assert [w.launch_count for w in wrappers] == before
+    assert not cuda_lib.since(before)
     for name in ("cpu", "threads", "openmp", "kokkos-serial",
                  "kokkos-openmp", "kokkos-thread"):
         assert ray_tracer._route(name) == ("cpu", torch.device("cpu"))

@@ -72,12 +72,16 @@ def _entry_by_entry(problem, mesh):
     """The sharded call's reduced output with the entries dispatched one
     after another, each to its end."""
     prep = prepare_sharded(problem, mesh, "cpu")
-    calls = [ray_tracer._dispatch(sp, "cpu", torch.device(dev), CHUNK, 0.5,
-                                  readback=False)
-             for dev, sp in prep.shards]
+    calls = []
+    for dev, sp in prep.shards:
+        entry = ray_tracer._prepare(sp, "cpu", torch.device(dev), CHUNK, 0.5,
+                                    readback=False, eager=True)
+        calls.append(entry.pipeline(*entry.operands))
     out = collectives.sum_reduce([c.out for c in calls]).numpy()
-    n = calls[0].n_image
-    return out[:n], out[n:-ray_tracer.N_FLAGS]
+    return ray_tracer._finish(problem, out,
+                              [(sp, c.codes) for (_dev, sp), c in
+                               zip(prep.shards, calls)], prep.cfg["method"],
+                              "unused.dat")
 
 
 @pytest.mark.parametrize("seeded", [False, True])
@@ -106,7 +110,7 @@ def test_turns_vs_jax_sharded(seeded):
 
 def test_dispatch_steps_one_a_chunk():
     """``_dispatch_steps`` yields once a chunk and returns the call that
-    ``_dispatch`` returns, bit for bit."""
+    the eager pipeline returns, bit for bit."""
     prep = ray_tracer.prepare_pipeline(synthetic_problem(**SMALL), "cpu",
                                        chunk_size=CHUNK)
     steps = ray_tracer._dispatch_steps(prep.cfg, *prep.operands)
@@ -119,19 +123,33 @@ def test_dispatch_steps_one_a_chunk():
             call = stop.value
             break
     assert n == -(-135 // CHUNK)
-    want = ray_tracer._dispatch(synthetic_problem(**SMALL), "cpu",
-                                torch.device("cpu"), CHUNK, 0.5)
+    eager = ray_tracer._prepare(synthetic_problem(**SMALL), "cpu",
+                                torch.device("cpu"), CHUNK, 0.5, eager=True)
+    want = eager.pipeline(*eager.operands)
     assert torch.equal(call.out, want.out)
     assert torch.equal(call.codes, want.codes)
 
 
 def test_per_device_counts_and_the_cpu_guard():
-    """A launch counts on its device beside the total; the guard is a null
+    """A launch is booked under its C entry and device, a failed one not at
+    all, and a batch (a graph replay's) per device; the guard is a null
     context for CPU tensors (the plain twins, the host-built library)."""
-    counts = {}
-    for dev in ("cuda:1", "cuda:1", "cuda:0", torch.device("cuda", 1)):
-        cuda_lib.count_launch(counts, dev)
-    assert counts == {torch.device("cuda", 1): 3, torch.device("cuda", 0): 1}
+    class Lib:
+        def rt_trace(self, rc):
+            return rc
+
+    cpu, card = torch.device("cpu"), torch.device("cuda", 1)
+    before = cuda_lib.launches()
+    for dev in ("cpu", cpu):
+        cuda_lib.launch(Lib(), "rt_trace", dev, 0)
+    with pytest.raises(RuntimeError, match="rt_trace"):
+        cuda_lib.launch(Lib(), "rt_trace", cpu, 2)
+    cuda_lib.book({("rt_trace", card): 3})
+    made = cuda_lib.since(before)
+    assert made == {("rt_trace", cpu): 2, ("rt_trace", card): 3}
+    assert cuda_lib.per_entry(made) == {"rt_trace": 5}
+    cuda_lib.book({k: -n for k, n in made.items()})
+    assert not cuda_lib.since(before)
     with cuda_lib.device_guard("cpu"):
         pass
 

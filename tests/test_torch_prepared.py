@@ -36,7 +36,7 @@ from raytrace_tpu_torch.convert import problem_from_jax
 from raytrace_tpu_torch.models import ray_tracer
 from raytrace_tpu_torch.models.ray_tracer import (PreparedCall,
                                                   prepare_pipeline)
-from raytrace_tpu_torch.ops import stepper
+from raytrace_tpu_torch.ops import cuda_lib, stepper
 from raytrace_tpu_torch.parallel import sharding
 from raytrace_tpu_torch.testing import perturbed_problems, synthetic_problem
 from raytrace_tpu_torch.utils.errors import RayTraceError, read_failures
@@ -204,37 +204,32 @@ def test_launches_follow_the_config():
     """Per call on the kernels: one B1 and one B2 a chunk, and B3 a chunk
     unless the emissivity amplify runs; none for the plain twins."""
     prep = prepare_pipeline(synthetic_problem(**SMALL), "cpu", chunk_size=9)
-    assert prep.cfg["launches"] == dict(trace=0, bin_deposit=0, amplify=0,
-                                        bin_deposit_f32=0, amplify_f32=0,
-                                        amplify_emis=0, amplify_emis_f32=0)
+    assert prep.cfg["launches"] == {}
     assert not prep.cfg["graph"]
 
 
 @pytest.mark.parametrize("seeded,dtype,want", [
-    (False, torch.float64, dict(amplify=0, amplify_f32=0, amplify_emis=1,
-                                amplify_emis_f32=0)),
-    (True, torch.float64, dict(amplify=1, amplify_f32=0, amplify_emis=0,
-                               amplify_emis_f32=0)),
-    (False, torch.float32, dict(amplify=0, amplify_f32=0, amplify_emis=0,
-                                amplify_emis_f32=1)),
-    (True, torch.float32, dict(amplify=1, amplify_f32=1, amplify_emis=0,
-                               amplify_emis_f32=0)),
+    (False, torch.float64, dict(rt_trace=1, rt_amplify_emis=1,
+                                rt_bin_deposit=1)),
+    (True, torch.float64, dict(rt_trace=1, rt_amplify_seeded=1,
+                               rt_bin_deposit=1)),
+    (False, torch.float32, dict(rt_trace=1, rt_amplify_emis_f32=1,
+                                rt_bin_deposit_f32=1)),
+    (True, torch.float32, dict(rt_trace=1, rt_amplify_seeded_f32=1,
+                               rt_bin_deposit_f32=1)),
 ], ids=["ase-f64", "seeded-f64", "ase-f32", "seeded-f32"])
 def test_kernel_launches_per_chunk(seeded, dtype, want):
     """A ``cuda`` configuration (resolved here for the CPU; the graph's
-    capture holds the card's launches to it) books B1 and B2 once a chunk,
-    and once a chunk B4 on an f64 ASE call, B4-f32 on an f32 one, B3 on a
-    seeded one (its f32 instantiation too in f32)."""
+    capture holds the card's launches to it) launches, once a chunk, the C
+    entries of B1 and B2 and of B4 on an ASE call or B3 on a seeded one,
+    each in the spectrum's dtype, and no other."""
     p = synthetic_problem(seeded=seeded, **SMALL)
     prep = ray_tracer._prepare(p, "cuda", "cpu", chunk_size=50, eager=True,
                                spectrum_dtype=dtype)
     n = prep.cfg["n_chunks"]
     assert n > 2
-    f32 = n if dtype == torch.float32 else 0
-    assert prep.cfg["launches"] == dict(
-        trace=n, bin_deposit=n, bin_deposit_f32=f32,
-        **{k: v * n for k, v in want.items()})
-    assert set(prep.cfg["launches"]) == set(ray_tracer._WRAPPERS)
+    assert prep.cfg["launches"] == {k: v * n for k, v in want.items()}
+    assert set(prep.cfg["launches"]) <= set(cuda_lib._SIGNATURES)
 
 
 @pytest.mark.parametrize("reorder", [False, True])

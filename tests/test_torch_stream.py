@@ -176,8 +176,9 @@ def test_reorder_dispatch_follows_feedback(monkeypatch):
         return real(rays, *a, **kw)
 
     monkeypatch.setattr(stepper, "trace_batch_plain", recording)
-    call = ray_tracer._dispatch(p, "cpu", torch.device("cpu"), chunk, 0.5,
-                                prev=given)
+    prep = ray_tracer._prepare(p, "cpu", torch.device("cpu"), chunk, 0.5,
+                               reorder=True, eager=True)
+    call = prep.pipeline(*prep.operands, given)
     assert torch.equal(given, prev)
     grid_y = torch.from_numpy(np.asarray(src.y).astype(np.float32))
     row = ray_tracer.reorder_row_geom(p)

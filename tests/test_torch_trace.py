@@ -27,7 +27,7 @@ from raytrace_tpu.ops import stepper as jax_stepper
 from raytrace_tpu.testing import synthetic_problem
 
 from raytrace_tpu_torch.convert import gain_from_numpy
-from raytrace_tpu_torch.ops import trace_kernel
+from raytrace_tpu_torch.ops import cuda_lib, trace_kernel
 from raytrace_tpu_torch.ops.stepper import trace_batch_plain
 
 torch.set_num_threads(2)
@@ -169,10 +169,10 @@ def test_wrapper_takes_the_twin_on_cpu():
     rays = {k: torch.from_numpy(v) for k, v in
             zip("xyab", _sample_rays(p, 64, 1))}
     gain = gain_from_numpy(jax_prepare_gain(p.gain, as_numpy=True))
-    before = trace_kernel.launch_count
+    before = cuda_lib.launches()
     a = trace_kernel.trace_batch(rays, p.N, p.euv_beam.dz, gain, 1)
     b = trace_batch_plain(rays, p.N, p.euv_beam.dz, gain, 1)
-    assert trace_kernel.launch_count == before
+    assert not cuda_lib.since(before)
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
