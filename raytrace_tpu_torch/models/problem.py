@@ -14,11 +14,15 @@ in numpy and copies it to the requested device once per call:
   f32 casts of f64 differences;
 * the separable seed factors with their pchip gradients.
 
-A call builds its tables as host numpy arrays (``*_arrays``), packs them
-into one host buffer (:func:`pack_arrays`, pinned for a CUDA device) and
-copies that buffer to the device at once; :func:`unpack_arrays` cuts the
-device copy back into tensors (views of the one buffer), and the
-``*_from_tensors`` functions assemble the device structures from them.
+A call writes its tables into one host buffer (pinned for a CUDA device)
+and copies that buffer to the device at once: :func:`table_layout` places
+each table from the shapes alone, and :func:`write_tables` writes each one
+straight into its place, so that the buffer may be one a CUDA graph reads
+(``models/ray_tracer.py``). Its plain twin builds the tables as host numpy
+arrays (``*_arrays``, :func:`table_arrays`) and copies them in
+(:func:`pack_arrays`). :func:`unpack_arrays` cuts the device copy back into
+tensors (views of the one buffer), and the ``*_from_tensors`` functions
+assemble the device structures from them.
 
 Every function takes an explicit ``device``; nothing here keeps global
 device state.
@@ -26,6 +30,7 @@ device state.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -38,7 +43,8 @@ __all__ = ["DeviceGain", "DeviceSeed", "DeviceBeam", "gain_arrays",
            "gain_to_device", "prepare_gain", "seed_arrays", "seed_scalars",
            "seed_from_tensors", "beam_arrays", "beam_scalars",
            "beam_from_tensors", "prepare_beam",
-           "pack_arrays", "unpack_arrays"]
+           "pack_arrays", "unpack_arrays", "layout_nbytes",
+           "table_arrays", "table_layout", "table_views", "write_tables"]
 
 
 class DeviceGain(NamedTuple):
@@ -239,21 +245,175 @@ def prepare_beam(beam, device="cpu") -> DeviceBeam:
 _ALIGN = 16
 
 
+def _padded(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def _layout_of(fields) -> list:
+    """The packed layout of ``(name, dtype, shape)`` fields, in their
+    order: ``(name, offset, dtype, shape)`` each, every offset a multiple
+    of ``_ALIGN``."""
+    layout, off = [], 0
+    for name, dtype, shape in fields:
+        dtype = np.dtype(dtype)
+        layout.append((name, off, dtype, tuple(shape)))
+        off += _padded(math.prod(shape) * dtype.itemsize)
+    return layout
+
+
+def layout_nbytes(layout) -> int:
+    """The bytes of a buffer packed by ``layout``."""
+    if not layout:
+        return _ALIGN
+    _name, off, dtype, shape = layout[-1]
+    return max(off + _padded(math.prod(shape) * dtype.itemsize), _ALIGN)
+
+
 def pack_arrays(arrays: dict, pin: bool = False):
     """Pack named host arrays into one uint8 tensor (page-locked with
     ``pin``, so that a copy to a CUDA device can run asynchronously).
     Returns ``(buffer, layout)`` for :func:`unpack_arrays`."""
-    layout, off = [], 0
-    for name, a in arrays.items():
-        a = np.asarray(a)
-        layout.append((name, off, a.dtype, a.shape))
-        off += -(-a.nbytes // _ALIGN) * _ALIGN
-    buf = torch.empty(max(off, _ALIGN), dtype=torch.uint8, pin_memory=pin)
+    arrays = {name: np.asarray(a) for name, a in arrays.items()}
+    layout = _layout_of((name, a.dtype, a.shape)
+                        for name, a in arrays.items())
+    buf = torch.empty(layout_nbytes(layout), dtype=torch.uint8,
+                      pin_memory=pin)
     view = buf.numpy()
     for (_name, o, _dtype, _shape), a in zip(layout, arrays.values()):
         a = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
         view[o:o + a.size] = a
     return buf, layout
+
+
+def table_arrays(gains: list[RayGain], beam, src, seed=None) -> dict:
+    """A call's tables as named host arrays, in the order they are packed:
+    the gain tables (``gain.*``, :func:`gain_arrays`), the EUV beam's grids
+    (``beam.*``), the source beam's grids as f32 (``grid.x`` .. ``grid.b``)
+    and, with a ``seed``, its tables (``seed.*``, :func:`seed_arrays`).
+    ``pack_arrays`` of them is the plain twin of :func:`write_tables`."""
+    arrays = {f"gain.{k}": v for k, v in gain_arrays(gains).items()}
+    arrays.update({f"beam.{k}": v for k, v in beam_arrays(beam).items()})
+    for axis, grid in zip("xyab", (src.x, src.y, src.a, src.b)):
+        arrays[f"grid.{axis}"] = np.asarray(grid, np.float64).astype(
+            np.float32)
+    if seed is not None:
+        arrays.update({f"seed.{k}": v for k, v in seed_arrays(seed).items()})
+    return arrays
+
+
+def table_layout(gains: list[RayGain], beam, src, seed=None) -> list:
+    """The layout :func:`pack_arrays` gives :func:`table_arrays`, from the
+    tables' shapes alone (no value is read): the segment count, the largest
+    Nx and Ny, K, the beams' grids and the seed's dims."""
+    f64, f32 = np.float64, np.float32
+    N = len(gains)
+    nx = max(g.Nx for g in gains)
+    ny = max(g.Ny for g in gains)
+    K = gains[0].Nv
+    cells = (N, nx * ny)
+    fields = [("gain.x", f64, (N, nx)), ("gain.y", f64, (N, ny)),
+              ("gain.cdx", f32, (N, nx - 1)), ("gain.cdy", f32, (N, ny - 1)),
+              ("gain.n4", f32, cells), ("gain.g0", f32, cells),
+              ("gain.E0", f32, cells), ("gain.Gx", f32, (N, ny * (nx - 1))),
+              ("gain.Gy", f32, (N, (ny - 1) * nx)),
+              ("gain.gv", f32, cells + (K,)), ("gain.gv0", f32, cells),
+              ("gain.range4", f32, (N, 4)), ("gain.abs_y", np.bool_, (N,)),
+              ("gain.nx", np.int32, (N,)), ("gain.ny", np.int32, (N,))]
+    fields += [(f"beam.{k}", f64, np.shape(getattr(beam, k)))
+               for k in ("x", "y", "a", "b", "dv")]
+    fields += [(f"grid.{axis}", f32, np.shape(grid))
+               for axis, grid in zip("xyab", (src.x, src.y, src.a, src.b))]
+    if seed is not None:
+        for a in range(4):
+            n = len(seed.x[a])
+            fields += [(f"seed.x{a}", f64, (n,)),
+                       (f"seed.f{a}", f64, np.shape(seed.f[a])),
+                       (f"seed.g1_{a}", f64, (n - 1,)),
+                       (f"seed.g2_{a}", f64, (n - 1,))]
+        fields.append(("seed.fv", f64, np.shape(seed.f[4])))
+    return _layout_of(fields)
+
+
+def table_views(buf, layout) -> dict:
+    """Numpy views of the uint8 tensor or array ``buf``, one a field of
+    ``layout`` (:func:`table_layout`), for :func:`write_tables`; the gain
+    tables by cell are shaped by their grid: ``[N, Ny, Nx]`` (``n4``,
+    ``g0``, ``E0``, ``gv0``), ``[N, Ny, Nx - 1]`` (``Gx``), ``[N, Ny - 1,
+    Nx]`` (``Gy``) and ``[N, Ny, Nx, K]`` (``gv``)."""
+    mem = buf.numpy() if isinstance(buf, torch.Tensor) else buf
+    v = {name: np.ndarray(shape, dtype, buffer=mem, offset=off)
+         for name, off, dtype, shape in layout}
+    N, nx = v["gain.x"].shape
+    ny = v["gain.y"].shape[1]
+    K = v["gain.gv"].shape[2]
+    for k in ("n4", "g0", "E0", "gv0"):
+        v[f"gain.{k}"] = v[f"gain.{k}"].reshape(N, ny, nx)
+    v["gain.Gx"] = v["gain.Gx"].reshape(N, ny, nx - 1)
+    v["gain.Gy"] = v["gain.Gy"].reshape(N, ny - 1, nx)
+    v["gain.gv"] = v["gain.gv"].reshape(N, ny, nx, K)
+    return v
+
+
+def write_tables(views: dict, gains: list[RayGain], beam, src,
+                 seed=None) -> None:
+    """Write a call's tables into their buffer, each straight into its view
+    (:func:`table_views`): over every field's bytes, what
+    :func:`pack_arrays` of :func:`table_arrays` holds. Every cell is
+    written, the zeros of a segment padded to the largest grid too, so the
+    buffer may hold an earlier call's tables."""
+    v = views
+    n4, g0, E0, gv0, Gx, Gy, gv = (v[f"gain.{k}"] for k in (
+        "n4", "g0", "E0", "gv0", "Gx", "Gy", "gv"))
+    xs, ys, r = v["gain.x"], v["gain.y"], v["gain.range4"]
+    ny, nx, K = gv.shape[1:]
+    for s, g in enumerate(gains):
+        Nx, Ny = g.Nx, g.Ny
+        x64 = np.asarray(g.x, np.float64)
+        y64 = np.asarray(g.y, np.float64)
+        n64 = np.asarray(g.n, np.float64).reshape(Ny, Nx)
+        for grid, dst in ((x64, xs[s]), (y64, ys[s])):
+            # padded grid points keep increasing by the last step
+            dst[:len(grid)] = grid
+            if len(grid) < len(dst):
+                step = grid[-1] - grid[-2] if len(grid) > 1 else 1.0
+                dst[len(grid):] = grid[-1] + step * np.arange(
+                    1, len(dst) - len(grid) + 1)
+        # plasma extents, f32, mirrored below
+        r[s] = (x64[0], x64[-1], y64[0], y64[-1])
+        # n and its edge gradients in f64, cast to f32 into the views
+        n4[s, :Ny, :Nx] = n64
+        np.divide(n64[:, 1:] - n64[:, :-1], x64[1:] - x64[:-1],
+                  out=Gx[s, :Ny, :Nx - 1], casting="unsafe")
+        np.divide(n64[1:] - n64[:-1], (y64[1:] - y64[:-1])[:, None],
+                  out=Gy[s, :Ny - 1, :Nx], casting="unsafe")
+        for dst, arr in ((g0[s], g.g0), (E0[s], g.E0), (gv0[s], g.gv0)):
+            if arr is None:  # no emissivity: E0 is zeros
+                dst[...] = 0
+            else:
+                dst[:Ny, :Nx] = np.asarray(arr).reshape(Ny, Nx)
+        gv[s, :Ny, :Nx] = np.asarray(g.gv).reshape(Ny, Nx, K)
+        if (Ny, Nx) != (ny, nx):
+            # the cells beyond the segment's grid are zeros
+            for t, ty, tx in ((n4, Ny, Nx), (Gx, Ny, Nx - 1),
+                              (Gy, Ny - 1, Nx), (g0, Ny, Nx), (E0, Ny, Nx),
+                              (gv0, Ny, Nx), (gv, Ny, Nx)):
+                t[s, ty:] = 0
+                t[s, :ty, tx:] = 0
+    for grid, cd in ((xs, v["gain.cdx"]), (ys, v["gain.cdy"])):
+        np.subtract(grid[:, 1:], grid[:, :-1], out=cd, casting="unsafe")
+    # a half-plane grid (y[0] >= 0) mirrors y
+    abs_y = v["gain.abs_y"]
+    np.greater_equal(r[:, 2], 0, out=abs_y)
+    r[abs_y, 2] = -r[abs_y, 3]
+    v["gain.nx"][:] = [g.Nx for g in gains]
+    v["gain.ny"][:] = [g.Ny for g in gains]
+    for k in ("x", "y", "a", "b", "dv"):
+        v[f"beam.{k}"][...] = np.asarray(getattr(beam, k), np.float64)
+    for axis, grid in zip("xyab", (src.x, src.y, src.a, src.b)):
+        v[f"grid.{axis}"][...] = np.asarray(grid, np.float64)
+    if seed is not None:
+        for k, a in seed_arrays(seed).items():
+            v[f"seed.{k}"][...] = a
 
 
 def unpack_arrays(buf: torch.Tensor, layout) -> dict:

@@ -41,8 +41,13 @@ annotations while a profiler records.
 
 On a CUDA device with the kernels (method ``cuda``) the pipeline is a CUDA
 graph of the whole call (:class:`_GraphPipeline`): captured once per
-configuration and then replayed, one host call per call, with each call's
-tables copied into the graph's page-locked staging buffer first. Elsewhere
+configuration and then replayed, one host call per call. The prepare writes
+each call's tables straight into the page-locked staging buffer of a graph
+that no call in flight or prepared holds, and the replay uploads them from
+there; where none is free the tables go to a fresh buffer, which the replay
+copies into the staging buffer of a graph that has come free or of one
+captured for the call (a sharded call's tables, packed once for every
+entry, are always copied). Elsewhere
 (the plain twins, on the CPU or on a card) it runs the chunk loop from
 Python (:class:`_EagerPipeline`, which is also what a graph captures). On
 a CUDA device the call runs with that device current
@@ -73,6 +78,7 @@ change every iteration (Readme.txt:43).
 from __future__ import annotations
 
 import time
+import weakref
 from collections import OrderedDict, deque
 from typing import NamedTuple
 
@@ -80,8 +86,9 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.models.problem import (
-    DeviceGain, beam_arrays, beam_from_tensors, beam_scalars, gain_arrays,
-    pack_arrays, seed_arrays, seed_from_tensors, seed_scalars, unpack_arrays)
+    DeviceGain, beam_from_tensors, beam_scalars, layout_nbytes,
+    seed_from_tensors, seed_scalars, table_layout, table_views,
+    unpack_arrays, write_tables)
 from raytrace_tpu_torch.ops import (amplify_kernel, binning, cuda_lib,
                                     deposit_kernel, seed as seed_ops,
                                     stepper, trace_kernel)
@@ -305,7 +312,9 @@ class PreparedCall(NamedTuple):
     """
 
     pipeline: object
-    #: (packed tables: one host uint8 buffer, page-locked for a CUDA device)
+    #: (packed tables: one host uint8 buffer, page-locked for a CUDA device;
+    #: on a graph pipeline, often a graph's staging buffer, which the call
+    #: holds until it is dropped)
     operands: tuple
     #: the static configuration the pipeline was built for: ``N``, ``K``,
     #: ``method``, ``use_emis``, ``spectrum_dtype``, ``dims``, ``chunk``,
@@ -381,7 +390,6 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
     n_chunks = -(-B_total // chunk)
     use_emis = problem.gain[0].E0 is not None and problem.seed is None
     reorder = bool(reorder) and B_total > 0
-    buf, layout = packed or _pack(problem, src, dev)
     # each chunk launches the trace, the amplify of its kind and the
     # deposit, the entries of the spectrum's dtype
     entries = (trace_kernel.ENTRY, amplify_kernel.entry(sdtype, use_emis),
@@ -395,12 +403,25 @@ def _prepare(problem, name, dev, chunk_size=None, c=0.5, reorder=False,
         c=float(c), chunk=chunk, n_chunks=n_chunks, B_total=B_total,
         N_start=problem.N_start, N_parallel=skip, reorder=reorder,
         reorder_row=reorder_row_geom(problem) if reorder else None,
-        pack_layout=tuple(layout), beam_scalars=beam_scalars(beam),
+        pack_layout=None,  # the tables' layout, set below
+        beam_scalars=beam_scalars(beam),
         seed_scalars=(None if problem.seed is None
                       else seed_scalars(problem.seed)),
         n_out=sum(_layout(beam)) + N_FLAGS, readback=readback,
         graph=name == "cuda" and not eager, launches=launches)
-    return PreparedCall(pipeline=_pipeline(cfg), operands=(buf,), cfg=cfg,
+    if packed:  # a mesh entry's tables, packed once for every entry
+        buf, layout = packed
+        cfg["pack_layout"] = tuple(layout)
+        pipe = _pipeline(cfg)
+    else:
+        # the layout, the pipeline that takes it and the writer: the pack
+        with profiler.span("pack"):
+            layout = table_layout(problem.gain, beam, src, problem.seed)
+            cfg["pack_layout"] = tuple(layout)
+            pipe = _pipeline(cfg)
+            buf = _write(problem, src, dev, layout,
+                         pipe if cfg["graph"] else None)
+    return PreparedCall(pipeline=pipe, operands=(buf,), cfg=cfg,
                         timer_name=timer_name + "-" + name)
 
 
@@ -674,21 +695,32 @@ def _source_beam(problem):
 
 
 def _pack(problem, src, dev):
-    """The call's tables packed on the host into one buffer, page-locked
-    for a CUDA ``dev``: ``(buffer, layout)`` of :func:`pack_arrays` (the
-    ``pack`` span)."""
+    """The call's tables written on the host into a fresh buffer,
+    page-locked for a CUDA ``dev``, for every entry of a mesh (the ``pack``
+    span): ``(buffer, layout)``."""
     with profiler.span("pack"):
-        arrays = {f"gain.{k}": v
-                  for k, v in gain_arrays(problem.gain).items()}
-        arrays.update({f"beam.{k}": v
-                       for k, v in beam_arrays(problem.euv_beam).items()})
-        for axis, grid in zip("xyab", (src.x, src.y, src.a, src.b)):
-            arrays[f"grid.{axis}"] = np.asarray(grid, np.float64).astype(
-                np.float32)
-        if problem.seed is not None:
-            arrays.update({f"seed.{k}": v
-                           for k, v in seed_arrays(problem.seed).items()})
-        return pack_arrays(arrays, pin=dev.type == "cuda")
+        layout = table_layout(problem.gain, problem.euv_beam, src,
+                              problem.seed)
+        return _write(problem, src, dev, layout), layout
+
+
+def _write(problem, src, dev, layout, pipe=None):
+    """Write the call's tables on the host into one buffer by ``layout``
+    (:func:`table_layout`): straight into the staging buffer of a free
+    graph of the graph pipeline ``pipe`` (:meth:`_GraphPipeline.claim`),
+    else into a fresh buffer, page-locked for a CUDA ``dev``.
+    ``pack.direct`` records 1 for a graph's buffer, 0 for a fresh one.
+    Returns the buffer."""
+    claimed = pipe.claim() if pipe is not None else None
+    profiler.add("pack.direct", float(claimed is not None))
+    if claimed is None:
+        buf = torch.empty(layout_nbytes(layout), dtype=torch.uint8,
+                          pin_memory=dev.type == "cuda")
+        views = table_views(buf, layout)
+    else:
+        buf, views = claimed
+    write_tables(views, problem.gain, problem.euv_beam, src, problem.seed)
+    return buf
 
 
 def _readback(out: torch.Tensor, dev):
@@ -881,11 +913,17 @@ class _Graph:
     launches use, and its outputs (static: each replay overwrites them, so
     a graph runs one call at a time, ``in_flight`` until finalized).
 
+    ``claim``: a weak reference to the tensor over ``staging`` that a
+    prepared call holds, its tables written there (None, or dead, where no
+    call holds it): a graph is free to take a call's tables while it is
+    neither in flight nor claimed, so that its staging buffer is written
+    neither under a replay nor under a prepared call that may replay it.
+
     Built on the first call that finds every graph of its config in
-    flight: one eager warm-up call of the config on the same buffers
-    (builds and loads the kernels, caches B1's occupancy query, so that no
-    such call happens during the capture), whose cached blocks then go
-    back to the card, then the capture of :func:`_dispatch_steps` and the
+    flight or claimed: one eager warm-up call of the config on the same
+    buffers (builds and loads the kernels, caches B1's occupancy query, so
+    that no such call happens during the capture), whose cached blocks then
+    go back to the card, then the capture of :func:`_dispatch_steps` and the
     readback on the caller's current stream (or a side stream), without
     waiting for any of it; the capture and replay raise on failure. A
     capture launches nothing, so its bookings in ``cuda_lib``'s launch
@@ -896,11 +934,12 @@ class _Graph:
 
     def __init__(self, cfg: dict, buf: torch.Tensor):
         dev = cfg["device"]
-        self.cfg, self.in_flight = cfg, False
+        self.cfg, self.in_flight, self.claim = cfg, False, None
         t0 = time.perf_counter()
         self.staging = torch.empty(buf.shape, dtype=buf.dtype,
                                    pin_memory=True)
         _stage(self.staging, buf)
+        self.views = table_views(self.staging, cfg["pack_layout"])
         self.ctr = torch.zeros(2, dtype=torch.int64, device=dev)
         self.prev = (torch.zeros(cfg["B_total"], dtype=torch.int32,
                                  device=dev) if cfg["reorder"] else None)
@@ -950,13 +989,25 @@ class _Graph:
         self.call = call._replace(out=call.out if self.host is None
                                   else self.host)
 
+    def holds(self, buf: torch.Tensor) -> bool:
+        """``buf`` is this graph's staging buffer."""
+        return buf.data_ptr() == self.staging.data_ptr()
+
+    def free(self) -> bool:
+        """Neither in flight nor claimed by a prepared call."""
+        return not self.in_flight and (self.claim is None
+                                       or self.claim() is None)
+
     def replay(self, buf, prev=None) -> _Call:
-        """Copy ``buf`` into the staging buffer and ``prev`` into the
-        graph's reorder input, replay the graph on the current stream of
-        its card, and record the ``done`` event there."""
+        """Copy ``buf`` into the staging buffer (the ``stage`` span; not
+        where ``buf`` is the staging buffer) and ``prev`` into the graph's
+        reorder input, replay the graph on the current stream of its card,
+        and record the ``done`` event there."""
         cfg = self.cfg
         dev = cfg["device"]
-        _stage(self.staging, buf)
+        if not self.holds(buf):
+            with profiler.span("stage"):
+                _stage(self.staging, buf)
         done = None
         with cuda_lib.device_guard(dev):
             if self.prev is not None:
@@ -975,12 +1026,25 @@ class _Graph:
 
 class _GraphPipeline:
     """The pipeline of a config with the kernels on a CUDA device: its
-    captured graphs, one per call in flight. A call replays a graph that
-    is not in flight, captured anew when there is none."""
+    captured graphs, one per call in flight or prepared. A call replays
+    the graph whose staging buffer holds its tables where that graph is not
+    in flight, else a free one (:meth:`_Graph.free`) after a copy of its
+    tables, else one captured anew (which copies them)."""
 
     def __init__(self, cfg: dict):
         self.cfg = cfg
         self.graphs: list = []
+
+    def claim(self):
+        """``(buffer, views)``: a new tensor over the staging buffer of a
+        free graph, which claims the graph for as long as it lives, and the
+        graph's :func:`table_views` of it; None where no graph is free."""
+        for g in self.graphs:
+            if g.free():
+                buf = g.staging.view(g.staging.shape)
+                g.claim = weakref.ref(buf)
+                return buf, g.views
+        return None
 
     def steps(self, buf, prev=None):
         """The call as one step: the replay."""
@@ -988,7 +1052,10 @@ class _GraphPipeline:
         yield  # a generator of no steps before its return
 
     def __call__(self, buf, prev=None) -> _Call:
-        graph = next((g for g in self.graphs if not g.in_flight), None)
+        graph = next((g for g in self.graphs
+                      if g.holds(buf) and not g.in_flight), None)
+        if graph is None:
+            graph = next((g for g in self.graphs if g.free()), None)
         if graph is None:
             with profiler.span("capture"):
                 graph = _Graph(self.cfg, buf)

@@ -383,10 +383,11 @@ def _sync_row(ctx: _Ctx, name: str, source, scale, n: int, salt: int,
                 f"mem_after_{name}": mem})
     row.update({prefix + k: v
                 for k, v in _graph_memory(ctx, ctx.dev, mem).items()})
-    prep = ray_tracer.prepare_pipeline(pristine, ctx.method,
-                                       spectrum_dtype=ctx.spectrum,
-                                       device=ctx.dev, eager=ctx.eager)
-    row[f"{prefix}graph"] = _graphs(prep.pipeline)
+    # a prepared call holds a graph until it is dropped: read the graphs of
+    # one and drop it before the next call
+    row[f"{prefix}graph"] = _graphs(ray_tracer.prepare_pipeline(
+        pristine, ctx.method, spectrum_dtype=ctx.spectrum, device=ctx.dev,
+        eager=ctx.eager).pipeline)
     if ctx.spectrum == torch.float32:
         want = create_image(fresh_problem(source, scale), ctx.method,
                             device=ctx.dev,

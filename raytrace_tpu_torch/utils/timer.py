@@ -9,13 +9,16 @@ table. ``profiler.scope(name, annotate=True)`` also opens the region as a
 so that it shows up in ``torch.profiler`` traces.
 
 ``profiler.span(name)`` is the program's own region at a host boundary of a
-call (``prepare``, ``pack``, ``dispatch``, ``capture``, ``wait``,
-``finalize``): it never synchronises a device, closes when its body raises,
-and opens a ``torch.profiler`` annotation only while a profiler records, so
-that with none recording it costs that check, two clock reads and the
-totals' update.
-``profiler.add(name, seconds)`` records a duration measured elsewhere (a
-device interval read from CUDA events, ``mesh.reduce``).
+call (``prepare``, ``pack``, ``dispatch``, ``stage``, ``capture``,
+``wait``, ``finalize``): it never synchronises a device, closes when its
+body raises, and opens a ``torch.profiler`` annotation only while a
+profiler records, so that with none recording it costs that check, two
+clock reads and the totals' update.
+``profiler.add(name, value)`` records a value measured elsewhere as one
+region: a duration (a device interval read from CUDA events,
+``mesh.reduce``) or a count (``pack.direct``: 1 for a call's tables packed
+straight into a CUDA graph's staging buffer, 0 for a fresh buffer, so that
+its total over its count is the share of direct packs).
 
 Work on a CUDA device runs asynchronously, so a region stopped with a CUDA
 ``device`` first synchronises that device: the recorded time then covers the
@@ -128,11 +131,11 @@ class Profiler:
             span = self._spans[name] = _Span(self, name)
         return span
 
-    def add(self, name: str, seconds: float) -> None:
-        """Record ``seconds`` measured elsewhere (device events) as one
-        region of ``name``."""
+    def add(self, name: str, value: float) -> None:
+        """Record ``value`` measured elsewhere (seconds of device events,
+        or a count) as one region of ``name``."""
         if self.enabled:
-            self.totals[name] += seconds
+            self.totals[name] += value
             self.counts[name] += 1
 
     def reset(self) -> None:

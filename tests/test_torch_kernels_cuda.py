@@ -317,16 +317,19 @@ def test_create_image_ase_fixture_goes_through_b4(cuda):
                         "fixtures", "golden_ase.dat")
     p, image0, i_ang0 = load_input(path)
     prep = ray_tracer.prepare_pipeline(p, "cuda", device=cuda)
-    n = prep.cfg["n_chunks"]
-    assert n > 0 and prep.cfg["launches"] == dict(
+    # a prepared call holds a graph until it is dropped
+    cfg, pipe = prep.cfg, prep.pipeline
+    del prep
+    n = cfg["n_chunks"]
+    assert n > 0 and cfg["launches"] == dict(
         rt_trace=n, rt_amplify_emis=n, rt_bin_deposit=n)
     create_image(p, "cuda", device=cuda)  # the warm-up and the capture
     for _ in range(2):
         before = cuda_lib.launches()
         image, i_ang = create_image(p, "cuda", device=cuda)
         assert check_ans(image0, i_ang0, image, i_ang)
-        assert _booked(before) == prep.cfg["launches"]
-    assert len(prep.pipeline.graphs) == 1
+        assert _booked(before) == cfg["launches"]
+    assert len(pipe.graphs) == 1
 
 
 def test_sharded_ase_on_the_cards_matches_single(cuda):
@@ -417,8 +420,11 @@ def test_create_image_ase_f32_goes_through_b4_f32(cuda):
     p, image0, i_ang0 = load_input(path)
     prep = ray_tracer.prepare_pipeline(p, "cuda", spectrum_dtype=f32,
                                        device=cuda)
-    n = prep.cfg["n_chunks"]
-    assert n > 0 and prep.cfg["launches"] == dict(
+    # a prepared call holds a graph until it is dropped
+    cfg, pipe = prep.cfg, prep.pipeline
+    del prep
+    n = cfg["n_chunks"]
+    assert n > 0 and cfg["launches"] == dict(
         rt_trace=n, rt_amplify_emis_f32=n, rt_bin_deposit_f32=n)
     create_image(p, "cuda", spectrum_dtype=f32, device=cuda)
     for _ in range(2):
@@ -426,8 +432,8 @@ def test_create_image_ase_f32_goes_through_b4_f32(cuda):
         image, i_ang = create_image(p, "cuda", spectrum_dtype=f32,
                                     device=cuda)
         assert check_ans(image0, i_ang0, image, i_ang)
-        assert _booked(before) == prep.cfg["launches"]
-    assert len(prep.pipeline.graphs) == 1
+        assert _booked(before) == cfg["launches"]
+    assert len(pipe.graphs) == 1
     twin = create_image(p, "cpu", spectrum_dtype=f32, device=cuda)
     for a, b in ((image, twin[0]), (i_ang, twin[1])):
         assert np.linalg.norm(a - b) <= 1e-12 * np.linalg.norm(b)
@@ -738,15 +744,18 @@ def test_graph_replay_matches_eager(cuda, seeded):
     source = functools.partial(synthetic_problem, seeded=seeded)
     units = perturbed_problems(source, 3, salt=7)
     prep = ray_tracer.prepare_pipeline(units[0], "cuda", device=cuda)
-    assert isinstance(prep.pipeline, ray_tracer._GraphPipeline)
-    assert prep.cfg["launches"]["rt_trace"] > 0
+    # a prepared call holds a graph until it is dropped
+    cfg, pipe = prep.cfg, prep.pipeline
+    del prep
+    assert isinstance(pipe, ray_tracer._GraphPipeline)
+    assert cfg["launches"]["rt_trace"] > 0
     for u, w in zip(units, [_eager(u, cuda) for u in
                             perturbed_problems(source, 3, salt=7)]):
-        graphs, before = len(prep.pipeline.graphs), cuda_lib.launches()
+        graphs, before = len(pipe.graphs), cuda_lib.launches()
         _close(create_image(u, "cuda", device=cuda), w)
-        calls = 1 + len(prep.pipeline.graphs) - graphs
+        calls = 1 + len(pipe.graphs) - graphs
         assert _booked(before) == {k: n * calls
-                                   for k, n in prep.cfg["launches"].items()}
+                                   for k, n in cfg["launches"].items()}
     graphs = ray_tracer.prepare_pipeline(units[0], "cuda",
                                          device=cuda).pipeline.graphs
     assert len(graphs) == 1 and graphs[0].nodes["kernel"] > 0
@@ -774,6 +783,118 @@ def test_two_stream_slots_replayed_back_to_back(cuda):
         _close(ray_tracer._finalize_call(u, prep, o, "unused.dat"), w)
     for o in outs:
         assert not o.graph.in_flight and not o.graph.ctr.any()
+
+
+def _direct_share(fn):
+    """``fn()`` and the share of the packs it made that went straight into
+    a graph's staging buffer (``pack.direct``)."""
+    from raytrace_tpu_torch.utils.timer import profiler
+
+    n0 = profiler.counts.get("pack.direct", 0)
+    t0 = profiler.totals.get("pack.direct", 0.0)
+    out = fn()
+    n = profiler.counts["pack.direct"] - n0
+    return out, (profiler.totals["pack.direct"] - t0) / n
+
+
+def _captures() -> int:
+    from raytrace_tpu_torch.utils.timer import profiler
+
+    return profiler.counts.get("capture", 0)
+
+
+@pytest.mark.parametrize("depth", [None, 2, 3], ids=["sync", "stream2",
+                                                     "stream3"])
+def test_direct_pack_matches_eager(cuda, depth):
+    """Calls on fresh units, synchronous or streamed at depths 2 and 3,
+    once the config's graphs are captured: every call's tables packed
+    straight into the staging buffer of the graph that replays it
+    (``pack.direct`` on every call), no capture, and each unit's images
+    within 1e-12 of its eager call (the deposit's f64 atomics sum in
+    another order each run, so no two runs agree bitwise)."""
+    import functools
+
+    from raytrace_tpu_torch import create_image, create_image_stream
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    source = functools.partial(synthetic_problem, seeded=depth == 3)
+    want = [_eager(u, cuda) for u in perturbed_problems(source, 6, salt=21)]
+    units = perturbed_problems(source, 6, salt=21)
+    warm = perturbed_problems(source, (depth or 1) + 1, salt=22)
+    ray_tracer.clear_pipeline_cache()
+    if depth is None:
+        for u in warm:
+            create_image(u, "cuda", device=cuda)
+        run = lambda: [create_image(u, "cuda", device=cuda)  # noqa: E731
+                       for u in units]
+    else:
+        list(create_image_stream(warm, "cuda", depth=depth, device=cuda))
+        run = lambda: list(create_image_stream(  # noqa: E731
+            units, "cuda", depth=depth, device=cuda))
+    captures = _captures()
+    got, share = _direct_share(run)
+    assert share == 1.0 and _captures() == captures
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_held_prepared_call_keeps_its_tables(cuda):
+    """A prepared call holds the staging buffer its tables went to: newer
+    calls of its config, prepared and dispatched while it lives, leave its
+    bytes alone (they pack into a graph of their own), and the held call,
+    dispatched after them, and again after another, returns its own
+    unit's images."""
+    import functools
+
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    source = functools.partial(synthetic_problem, seeded=True)
+    want_a, want_b = (_eager(u, cuda)
+                      for u in perturbed_problems(source, 2, salt=23))
+    a, b = perturbed_problems(source, 2, salt=23)
+    ray_tracer.clear_pipeline_cache()
+    create_image(perturbed_problems(source, 1, salt=24)[0], "cuda",
+                 device=cuda)
+    prep = ray_tracer.prepare_pipeline(a, "cuda", device=cuda)
+    buf, = prep.operands
+    assert any(g.holds(buf) for g in prep.pipeline.graphs)
+    saved = buf.clone()
+    for _ in range(2):
+        _close(create_image(b, "cuda", device=cuda), want_b)
+        assert torch.equal(buf, saved)
+        _close(ray_tracer._finalize_call(a, prep,
+                                         prep.pipeline(*prep.operands),
+                                         "unused.dat"), want_a)
+    assert len(prep.pipeline.graphs) == 2
+
+
+def test_dropped_prepared_call_frees_its_graph(cuda):
+    """A prepared call dropped undispatched leaves its graph free: the next
+    call of the config packs into it and replays it, with no capture."""
+    import functools
+
+    from raytrace_tpu_torch import create_image
+    from raytrace_tpu_torch.models import ray_tracer
+    from raytrace_tpu_torch.testing import perturbed_problems
+
+    source = functools.partial(synthetic_problem, seeded=False)
+    want = _eager(perturbed_problems(source, 3, salt=25)[2], cuda)
+    u0, u1, u2 = perturbed_problems(source, 3, salt=25)
+    ray_tracer.clear_pipeline_cache()
+    create_image(u0, "cuda", device=cuda)
+    captures = _captures()
+    prep = ray_tracer.prepare_pipeline(u1, "cuda", device=cuda)
+    pipe = prep.pipeline
+    assert pipe.graphs[0].holds(prep.operands[0])
+    del prep
+    got, share = _direct_share(lambda: create_image(u2, "cuda",
+                                                    device=cuda))
+    _close(got, want)
+    assert share == 1.0 and _captures() == captures
+    assert len(pipe.graphs) == 1
 
 
 @pytest.mark.parametrize("seeded", [False, True])
