@@ -709,12 +709,15 @@ def _write(problem, src, dev, layout, pipe=None):
     (:func:`table_layout`): straight into the staging buffer of a free
     graph of the graph pipeline ``pipe`` (:meth:`_GraphPipeline.claim`),
     else into a fresh buffer, page-locked for a CUDA ``dev``.
-    ``pack.direct`` records 1 for a graph's buffer, 0 for a fresh one.
+    ``pack.direct`` records 1 for a graph's buffer, 0 for a fresh one;
+    ``pack.bytes`` the bytes written, the whole buffer's, padding included.
     Returns the buffer."""
     claimed = pipe.claim() if pipe is not None else None
+    nbytes = layout_nbytes(layout)
     profiler.add("pack.direct", float(claimed is not None))
+    profiler.add("pack.bytes", float(nbytes))
     if claimed is None:
-        buf = torch.empty(layout_nbytes(layout), dtype=torch.uint8,
+        buf = torch.empty(nbytes, dtype=torch.uint8,
                           pin_memory=dev.type == "cuda")
         views = table_views(buf, layout)
     else:

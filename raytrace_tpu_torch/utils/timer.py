@@ -18,7 +18,8 @@ clock reads and the totals' update.
 region: a duration (a device interval read from CUDA events,
 ``mesh.reduce``) or a count (``pack.direct``: 1 for a call's tables packed
 straight into a CUDA graph's staging buffer, 0 for a fresh buffer, so that
-its total over its count is the share of direct packs).
+its total over its count is the share of direct packs; ``pack.bytes``: the
+bytes of a call's tables that a pack wrote).
 
 Work on a CUDA device runs asynchronously, so a region stopped with a CUDA
 ``device`` first synchronises that device: the recorded time then covers the

@@ -1,6 +1,7 @@
 """The port's create_image main path on the CPU (the plain twins of the
 kernels): golden gates on both fixtures, agreement with the JAX package,
-the stride contract, the limits and the failure path."""
+long gain columns against the scalar oracle, the stride contract, the
+limits and the failure path."""
 
 import os
 
@@ -16,7 +17,9 @@ from raytrace_tpu_torch import create_image, load_input
 from raytrace_tpu_torch.models import ray_tracer
 from raytrace_tpu_torch.models.ray_tracer import (generate_ray_indices,
                                                   resolve_method)
-from raytrace_tpu_torch.testing import synthetic_problem
+from raytrace_tpu_torch.ops import oracle
+from raytrace_tpu_torch.testing import (oracle_images, physical_gain,
+                                        synthetic_problem)
 from raytrace_tpu_torch.utils.errors import RayTraceError, read_failures
 from raytrace_tpu_torch.utils.stats import check_ans
 
@@ -90,6 +93,56 @@ def test_small_synthetic_vs_jax_lax_exact():
         img, ang = create_image(p, "cpu")
         img_j, ang_j = raytrace_tpu.create_image(pj, "lax-exact")
         assert _rel(img, img_j) < 1e-5 and _rel(ang, ang_j) < 1e-5
+
+
+#: the JAX package's tests' bound against the scalar oracle, where
+#: refraction lets trajectories part by an ulp a step
+#: (``tests/test_create_image.py``)
+_JITTER_TOL = 2e-3
+
+
+def _escapes_mid_path(p, method):
+    """True if some edge ray's oracle walk stops before the last segment:
+    a zero ``gvl`` row beside a nonzero one (the synthetic's g0 is positive
+    everywhere on the grid)."""
+    b = p.euv_beam
+    src = p.seed_beam if method == 2 else b
+    for x in (src.x[0], src.x[-1]):
+        for y in (src.y[0], src.y[-1]):
+            for a in src.a:
+                for bb in src.b:
+                    ray = tuple(np.float32(v) for v in (x, y, a, bb))
+                    res = oracle.calc_ray(ray, p.N, b.dz, p.gain,
+                                          p.seed if method == 2 else None,
+                                          b.nv, method)
+                    rows = np.abs(res.gvl[: p.N - 1]).sum(axis=1)
+                    if np.any(rows == 0.0) and np.any(rows > 0.0):
+                        return True
+    return False
+
+
+@pytest.mark.parametrize("case", ["ase-n6", "ase-n20", "seeded-n20"])
+def test_long_gain_column_vs_oracle(case):
+    """Gain columns past the shipped N = 3 against the scalar oracle, with
+    rays leaving the grid mid-path: N = 6 with refraction on (the
+    ``ase-n6`` unit's length), and N = N_MAX = 20 refraction-free at the
+    saturated gain (``physical_gain``) for both methods."""
+    seeded = case.startswith("seeded")
+    method = 2 if seeded else 1
+    if case == "ase-n6":
+        def make():
+            return synthetic_problem(nx=5, ny=3, na=4, nb=3, nv=5, N=6)
+    else:
+        def make():
+            return physical_gain(synthetic_problem(
+                nx=5, ny=3, na=4, nb=3, nv=5, N=20, seeded=seeded,
+                refraction_free=True))
+    p = make()
+    assert _escapes_mid_path(p, method), "no ray leaves the grid mid-path"
+    want_img, want_ang = oracle_images(p, method)
+    img, ang = create_image(make(), "cpu")
+    assert _rel(img, want_img) < _JITTER_TOL
+    assert _rel(ang, want_ang) < _JITTER_TOL
 
 
 def regrid(p, seg, nx, ny):

@@ -260,17 +260,20 @@ def _emis_rel(got, want):
     return ((got - want)[nz].abs() / want[nz].abs()).max().item()
 
 
-@pytest.mark.parametrize("shape", ["ase-call", "chunk"])
+@pytest.mark.parametrize("shape", ["ase-call", "ase-n6-call", "chunk"])
 def test_amplify_emis_kernel_vs_twin(cuda, shape):
     """B4 against its twin on the card at the ASE call's shape (the 399,000
-    rays of the ASE-widths synthetic traced by B1, K 52, 2 x 3 steps) and at
-    a 2^20-ray chunk of ``emis_inputs`` (|gvl gv| straddling the Taylor
+    rays of the ASE-widths synthetic traced by B1, K 52, 2 x 3 steps, the
+    unrolled instantiation), at the same call with six gain tables (5 x 3
+    steps, the generic instantiation, rays leaving mid-path) and at a
+    2^20-ray chunk of ``emis_inputs`` (|gvl gv| straddling the Taylor
     branch's bound, odd K too): the spectrum within 1e-15 relative (CUDA's
     exp in both), the flags identical; one launch counted."""
     from raytrace_tpu_torch.testing import ASE_SHAPE, source_rays
 
-    if shape == "ase-call":
-        p = synthetic_problem(**ASE_SHAPE)
+    if shape != "chunk":
+        p = synthetic_problem(**dict(ASE_SHAPE,
+                                     N=6 if shape == "ase-n6-call" else 3))
         gain = prepare_gain(p.gain, cuda)
         res = trace_kernel.trace_batch(source_rays(p, None, cuda), p.N,
                                        p.euv_beam.dz, gain, 1)

@@ -214,7 +214,8 @@ def test_pack_records_direct(monkeypatch, where):
     ``pack.direct`` 0), of ``_write`` into a free graph's staging buffer
     (``pack.direct`` 1), and of ``prepare_pipeline`` on the CPU (a fresh
     buffer, one ``pack`` region a call, the layout worked out in it, and
-    the layout in ``cfg``): one ``pack.direct`` a call."""
+    the layout in ``cfg``): one ``pack.direct`` a call, and one
+    ``pack.bytes``, the size of the buffer the layout gives."""
     p, q = perturbed_problems(_ragged, 2, salt=3)
     layout = pr.table_layout(*_tables(p))
     dev = torch.device("cpu")
@@ -239,4 +240,6 @@ def test_pack_records_direct(monkeypatch, where):
         del buf
     assert profiler.counts["pack.direct"] == 2
     assert profiler.totals["pack.direct"] == (2.0 if pipe else 0.0)
+    assert profiler.counts["pack.bytes"] == 2
+    assert profiler.totals["pack.bytes"] == 2 * pr.layout_nbytes(layout)
     assert profiler.counts["pack"] == (0 if pipe else 2)
