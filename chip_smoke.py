@@ -21,7 +21,9 @@ fails (non-zero exit, no result line) if any phase fails:
    bitwise equal to the twin's), its counts variant timed beside the
    normal launch; B1 on a 2^20-ray chunk of the seeded shipped
    shape and on the whole ASE call: the census launch equal to the normal
-   one, the warp efficiency E of the micro-step counts, a timing in count
+   one, the warp efficiency E of the micro-step counts, the micro-step
+   lane fill (the rays' micro-steps over 32 times the micro-step
+   iterations the census launch's warps issued), a timing in count
    order beside launch order, the twin's time, and the operation bound
    from the counted
    micro-steps and cell entries; the same on a seeded chunk whose gain
@@ -423,10 +425,12 @@ def phase_kernels(results):
 
 def phase_trace_shapes(results):
     """B1 at the main path's shapes (a 2^20-ray seeded chunk, the whole ASE
-    call, a seeded chunk on a warped gain grid): time, the counts variant, the warp efficiency E of the
-    micro-step counts in launch order and in count order (each timed), the
-    cell-entry census and the operation bound. Returns each shape's
-    problem, tables, rays and trace result."""
+    call, a seeded chunk on a warped gain grid): time, the counts variant,
+    the warp efficiency E of the micro-step counts in launch order and in
+    count order (each timed), the micro-step lane fill of the census
+    launch (the rays' micro-steps over 32 times its warps' micro-step
+    iterations), the cell-entry census and the operation bound. Returns
+    each shape's problem, tables, rays and trace result."""
     from raytrace_tpu_torch.models.problem import prepare_gain
     from raytrace_tpu_torch.ops import cuda_lib, trace_kernel
     from raytrace_tpu_torch.testing import (ASE_SHAPE, SEED_SHAPE,
@@ -450,7 +454,7 @@ def phase_trace_shapes(results):
         B = rays["x"].shape[0]
         args = (p.N, p.euv_beam.dz, gain, method, 0.5, use_emis)
         res = trace_kernel.trace_batch(rays, *args)
-        res_c, steps, cells = trace_kernel._launch(
+        res_c, steps, cells, warp_steps = trace_kernel._launch(
             lib, rays, B, *args, stream, census=True)
         torch.cuda.synchronize()
         if not all(torch.equal(getattr(res, f), getattr(res_c, f))
@@ -467,6 +471,7 @@ def phase_trace_shapes(results):
         rays_sorted = {k: v[perm].contiguous() for k, v in rays.items()}
         eff = warp_efficiency(steps)
         eff_sorted = warp_efficiency(steps[perm])
+        fill = int(steps.sum()) / (32 * int(warp_steps.item()))
         t = in_turns({"natural": lambda: trace_kernel.trace_batch(rays, *args),
                       "sorted": lambda: trace_kernel.trace_batch(
                           rays_sorted, *args)}, 10)
@@ -490,7 +495,9 @@ def phase_trace_shapes(results):
               f"{t['natural']} ms, counts variant {ms_c:.4f} ms, plain twin "
               f"{plain_ms:.3f} ms; in count "
               f"order {t['sorted']} ms; E {eff:.4f} in launch order, "
-              f"{eff_sorted:.4f} in count order; micro-steps {n_steps} "
+              f"{eff_sorted:.4f} in count order; micro-step lane fill "
+              f"{fill:.4f} ({int(warp_steps.item())} warp iterations); "
+              f"micro-steps {n_steps} "
               f"(median {steps.float().median().item()}), cell entries "
               f"{n_cells}; {f32:.4e} f32 + {f64:.4e} f64 operations, "
               f"{nbytes} bytes: bound {b_ms:.4f} ms by {b_by}, "
@@ -500,6 +507,7 @@ def phase_trace_shapes(results):
             plain_ms=plain_ms, sorted_ms_readings=t["sorted"],
             sorted_ms=mean(t["sorted"]),
             warp_efficiency=eff, warp_efficiency_sorted=eff_sorted,
+            lane_fill=fill, warp_steps=int(warp_steps.item()),
             micro_steps=n_steps, cell_entries=n_cells, f32_ops=f32,
             f64_ops=f64, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
         shapes[name] = dict(p=p, gain=gain, rays=rays, res=res,

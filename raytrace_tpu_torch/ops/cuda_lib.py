@@ -59,7 +59,7 @@ _P, _I, _I64, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 #: or c_double
 _SIGNATURES = {
     "rt_trace": [_P] * 4 + [_I64] + [_P] * 13 + [_I] * 3 + [_F] * 2
-                + [_I] * 2 + [_P] * 12 + [_P],
+                + [_I] * 2 + [_P] * 13 + [_P],
     "rt_find_index": [_P, _I, _P, _I64, _P, _P],
     "rt_bin_deposit": [_P] * 6 + [_I64, _I, _I] + [_P, _I, _D] * 4
                       + [_P, _D, _I, _I] + [_P] * 3 + [_P],

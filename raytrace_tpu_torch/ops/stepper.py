@@ -149,9 +149,10 @@ def _propagate(act, sx, sy, sz, n0, dndx, dndy, box0, box1, box2, c):
 def _cell_walk(seg: int, gain: DeviceGain, ray: dict, z, z_stop,
                c: float, use_emis: bool):
     """Cell walk for one (segment, sub-length) (RayTraceImageHelper.h:
-    460-512). ``ray`` holds px, py, sx, sy, sz (f32), escaped (bool) and
-    the micro-step count nst (i32) and is updated in place; returns (z, gvl,
-    evl, ivl)."""
+    460-512). ``ray`` holds px, py, sx, sy, sz (f32), escaped (bool), the
+    micro-step count nst (i32) and the cell-entry count cells (i32, or
+    None where nothing counts them) and is updated in place; returns (z,
+    gvl, evl, ivl)."""
     nx_pad = gain.x.shape[1]
     xg, yg = gain.x[seg], gain.y[seg]
     cdxg, cdyg = gain.cdx[seg], gain.cdy[seg]
@@ -178,6 +179,8 @@ def _cell_walk(seg: int, gain: DeviceGain, ray: dict, z, z_stop,
                          | (py > r4[3]) | (sz * sz < _f(0.01)))
         ray["escaped"] = ray["escaped"] | esc_now
         work = act & ~esc_now
+        if ray["cells"] is not None:
+            ray["cells"] = ray["cells"] + work.to(torch.int32)
 
         # cell entry: f64 bisection + corner fetches
         y_eff = torch.abs(py) if absy else py
@@ -261,7 +264,7 @@ def _cell_walk(seg: int, gain: DeviceGain, ray: dict, z, z_stop,
 
 def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
                       method: int, c: float = 0.5, use_emis: bool = True,
-                      counts: bool = False):
+                      counts: bool = False, census: bool = False):
     """Propagate a batch of rays through all N-1 length segments.
 
     ``rays``: dict of f32 tensors ``x, y, a, b`` of shape [B] (entry
@@ -272,7 +275,9 @@ def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
 
     With ``counts``, returns ``(TraceResult, steps)``: ``steps`` [B] i32 is
     each ray's number of ``propagate`` micro-steps over the whole trace,
-    the cost the stream's reorder sorts by.
+    the cost the stream's reorder sorts by. With ``census``, returns
+    ``(TraceResult, steps, cells)``: ``cells`` [B] i32 is each ray's number
+    of cell entries, the kernel's census.
     """
     B = rays["x"].shape[0]
     dev = rays["x"].device
@@ -281,7 +286,9 @@ def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
     ray = {"px": rays["x"].float(), "py": rays["y"].float(),
            "sx": sx, "sy": sy, "sz": sz,
            "escaped": torch.zeros(B, dtype=torch.bool, device=dev),
-           "nst": torch.zeros(B, dtype=torch.int32, device=dev)}
+           "nst": torch.zeros(B, dtype=torch.int32, device=dev),
+           "cells": (torch.zeros(B, dtype=torch.int32, device=dev)
+                     if census else None)}
     gvl_all = torch.zeros((B, nseg, N_SUB), dtype=torch.float32, device=dev)
     evl_all = torch.zeros_like(gvl_all)
     ivl_all = torch.zeros((B, nseg, N_SUB), dtype=torch.int32, device=dev)
@@ -299,6 +306,8 @@ def trace_batch_plain(rays: dict, N: int, dz0: float, gain: DeviceGain,
             evl_all[:, ii - 1, isub] = evl
             ivl_all[:, ii - 1, isub] = ivl
     res = _exit_ray(ray, gvl_all, evl_all, ivl_all)
+    if census:
+        return res, ray["nst"], ray["cells"]
     return (res, ray["nst"]) if counts else res
 
 

@@ -126,8 +126,11 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
     """Allocate the outputs and launch :data:`ENTRY` of ``lib`` on
     ``stream`` (none for a batch of no rays); inputs already checked.
     Returns the TraceResult; with ``counts`` also the micro-step counts,
-    and with ``census`` also each ray's number of cell entries (``(res,
-    steps, cells)``, for the operation count of the kernel's bound)."""
+    and with ``census`` also each ray's number of cell entries and the
+    micro-step iterations the launch's warps issued (``(res, steps, cells,
+    warp_steps)``, ``warp_steps`` one int64: for the operation count of the
+    kernel's bound and the micro-step lane fill, ``steps.sum() / (32 *
+    warp_steps)``)."""
     dev = rays["x"].device
     nseg = max(N - 1, 0)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -140,6 +143,8 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
     perp = torch.empty(B, dtype=torch.uint8, device=dev)
     steps = torch.empty(B, **i32) if counts or census else None
     cells = torch.empty(B, **i32) if census else None
+    warp_steps = torch.zeros(1, dtype=torch.int64, device=dev) \
+        if census else None
     if B > 0:
         absy = gain.abs_y.to(torch.int32)
         cuda_lib.launch(
@@ -157,12 +162,13 @@ def _launch(lib, rays, B, N, dz0, gain, method, c, use_emis, stream,
             esc.data_ptr(), perp.data_ptr(),
             None if steps is None else steps.data_ptr(),
             None if cells is None else cells.data_ptr(),
+            None if warp_steps is None else warp_steps.data_ptr(),
             _counter(dev, stream).data_ptr(), stream)
     res = TraceResult(gvl=gvl, evl=evl, ivl=ivl, exit_x=ex, exit_y=ey,
                       exit_a=ea, exit_b=eb, escaped=esc.view(torch.bool),
                       perp=perp.view(torch.bool))
     if census:
-        return res, steps, cells
+        return res, steps, cells, warp_steps
     return (res, steps) if counts else res
 
 

@@ -173,33 +173,68 @@ def _rays(p, n, seed):
             for k, g in zip("xyab", (b.x, b.y, b.a, b.b))}
 
 
+#: the shipped ASE widths
+_SHIPPED = dict(nx=60, ny=25, na=19, nb=14, nv=52, gain_nx=106, gain_ny=26)
+
+
 @pytest.mark.parametrize("method", [1, 2])
-@pytest.mark.parametrize("kwargs", [
-    dict(refraction_free=True), dict(), dict(non_uniform_gain=0.8),
-    dict(full_plane=True),
-    dict(nx=60, ny=25, na=19, nb=14, nv=52, gain_nx=106, gain_ny=26),
+@pytest.mark.parametrize("kwargs,n_rays", [
+    (dict(refraction_free=True), 512), (dict(), 512),
+    (dict(non_uniform_gain=0.8), 512), (dict(full_plane=True), 512),
+    (_SHIPPED, 512), (dict(_SHIPPED, N=6), 512), (dict(), 3 * 128 + 37),
 ], ids=["straight", "refracting", "warped-grid", "full-plane",
-        "shipped-widths"])
-def test_trace_source_equals_twin(host_lib, method, kwargs):
-    """The counts variant: every output and the per-ray micro-step counts
-    equal the twin's."""
+        "shipped-widths", "n6-widths", "refill-rounds"])
+def test_trace_source_equals_twin(host_lib, method, kwargs, n_rays):
+    """The census launch: every output, the per-ray micro-step counts and
+    cell entries equal the twin's; at N 6 rays leave the grid mid-path;
+    more rays than the launch's threads (128 on the host), so that rays
+    start where others ended, inside the walk's loop."""
     p = synthetic_problem(seeded=method == 2, **kwargs)
-    rays = _rays(p, 512, 1)
+    rays = _rays(p, n_rays, 1)
     gain = prepare_gain(p.gain)
     use_emis = method == 1
-    want, want_steps = trace_batch_plain(rays, p.N, p.euv_beam.dz, gain,
-                                         method, use_emis=use_emis,
-                                         counts=True)
+    want, want_steps, want_cells = trace_batch_plain(
+        rays, p.N, p.euv_beam.dz, gain, method, use_emis=use_emis,
+        census=True)
     B = trace_kernel._check_inputs(rays, gain, p.N)
-    got, steps = trace_kernel._launch(host_lib, rays, B, p.N,
-                                      p.euv_beam.dz, gain, method, 0.5,
-                                      use_emis, None, counts=True)
+    got, steps, cells, _ = trace_kernel._launch(
+        host_lib, rays, B, p.N, p.euv_beam.dz, gain, method, 0.5, use_emis,
+        None, census=True)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert torch.equal(steps, want_steps)
-    assert steps.min().item() >= 1
+    assert torch.equal(cells, want_cells)
+    assert steps.min().item() >= 1 and cells.min().item() >= 1
+    if p.N == 6:
+        walked = (want.gvl != 0).any(dim=2).sum(dim=1)
+        assert (want.escaped & (walked > 0) & (walked < p.N - 1)).any()
     # the launch's last thread zeroed the refill's counters again
     assert not trace_kernel._counter(torch.device("cpu"), None).any()
+
+
+@pytest.mark.parametrize("method", [1, 2])
+def test_trace_source_warp_steps(host_lib, method):
+    """The census launch counts the micro-step iterations its warps issue:
+    on the host's one-lane warps exactly the rays' micro-steps (on the card
+    at least a 32nd of them); the counts launch and the plain launch return
+    no such count, and each launch's outputs equal the others'."""
+    p = synthetic_problem(seeded=method == 2, **_SHIPPED)
+    rays = _rays(p, 300, 2)
+    gain = prepare_gain(p.gain)
+    B = trace_kernel._check_inputs(rays, gain, p.N)
+    args = (host_lib, rays, B, p.N, p.euv_beam.dz, gain, method, 0.5,
+            method == 1, None)
+    res, steps, cells, warp_steps = trace_kernel._launch(*args, census=True)
+    assert warp_steps.shape == (1,) and warp_steps.dtype == torch.int64
+    assert warp_steps.item() == int(steps.sum()) > 0
+    assert warp_steps.item() * 32 >= int(steps.sum())
+    counted = trace_kernel._launch(*args, counts=True)
+    plain = trace_kernel._launch(*args)
+    assert len(counted) == 2 and torch.equal(counted[1], steps)
+    assert isinstance(plain, type(res))
+    for f in res._fields:
+        assert torch.equal(getattr(plain, f), getattr(res, f)), f
+        assert torch.equal(getattr(counted[0], f), getattr(res, f)), f
 
 
 @pytest.mark.parametrize("method", [1, 2])

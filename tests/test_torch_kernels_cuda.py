@@ -49,8 +49,13 @@ def _rays(p, n, seed, device):
 @pytest.mark.parametrize("method", [1, 2])
 @pytest.mark.parametrize("kwargs", [dict(refraction_free=True), dict(),
                                     dict(non_uniform_gain=0.8),
-                                    dict(full_plane=True)])
+                                    dict(full_plane=True),
+                                    dict(nx=60, ny=25, na=19, nb=14, nv=52,
+                                         gain_nx=106, gain_ny=26)])
 def test_trace_kernel_vs_twin(cuda, method, kwargs):
+    """4,096 rays, the last case at the shipped ASE widths: ``ivl`` and
+    ``escaped`` bitwise the twin's, one launch, the refill's counters zero
+    again after it."""
     p = synthetic_problem(seeded=method == 2, **kwargs)
     rays = _rays(p, 4096, 0, cuda)
     gain = prepare_gain(p.gain, cuda)
